@@ -1,0 +1,70 @@
+"""Convolution blocks: ConvBn2D / Conv2D.
+
+Counterpart of ``yolodl_tpu/ops/conv.py``.  Activations are NCHW and kernels
+OIHW, PyTorch's own layout; ``bridge.py`` transposes the reference's HWIO
+kernels.  The weight is cast to the activation dtype before the conv, as the
+reference casts it (conv.py:48-58), so a bf16 forward runs a bf16 conv.
+
+Both block orders: ``act_bn`` (conv → activation → BN, the NEWSLAB default,
+conv_bn_2d.rs:88-101) and ``bn_act`` (conv → BN → activation, darknet).
+Deconv comes with a later slice (ROADMAP A2).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .. import activations
+from ..config import newslab as cfg
+from .norm import batch_norm_apply
+
+Tensor = torch.Tensor
+
+
+def conv2d_apply(
+    x: Tensor,
+    w: Tensor,
+    b: Optional[Tensor] = None,
+    stride: int = 1,
+    padding: int = 0,
+    dilation: int = 1,
+    groups: int = 1,
+) -> Tensor:
+    """Grouped 2-D convolution, symmetric padding in pixels; w is OIHW."""
+    out = F.conv2d(x, w.to(x.dtype), None, stride=stride, padding=padding,
+                   dilation=dilation, groups=groups)
+    if b is not None:
+        out = out + b.to(out.dtype).view(1, -1, 1, 1)
+    return out
+
+
+def conv_bn_apply(
+    params: Dict[str, Any],
+    state: Dict[str, Any],
+    x: Tensor,
+    layer: cfg.ConvBn2D,
+    train: bool,
+) -> Tuple[Tensor, Dict[str, Any]]:
+    """conv → activation → BN (``act_bn``) or conv → BN → activation
+    (``bn_act``, darknet)."""
+    out = conv2d_apply(
+        x, params["w"], params.get("b"),
+        stride=layer.s, padding=layer.padding, dilation=layer.d, groups=layer.g,
+    )
+    new_state = state
+    if layer.order == "act_bn":
+        out = activations.apply(layer.act, out)
+        if layer.bn.enabled:
+            out, bn_s = batch_norm_apply(params["bn"], state["bn"], out, train)
+            new_state = {**state, "bn": bn_s}
+    elif layer.order == "bn_act":
+        if layer.bn.enabled:
+            out, bn_s = batch_norm_apply(params["bn"], state["bn"], out, train)
+            new_state = {**state, "bn": bn_s}
+        out = activations.apply(layer.act, out)
+    else:
+        raise ValueError(f"unknown conv order {layer.order!r}")
+    return out, new_state

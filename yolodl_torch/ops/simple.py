@@ -1,0 +1,72 @@
+"""Shape-plumbing ops: upsample, maxpool, sum, concat.
+
+Counterpart of ``yolodl_tpu/ops/simple.py``, NCHW layout throughout.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+Tensor = torch.Tensor
+
+
+def upsample2d(x: Tensor, scale: float) -> Tensor:
+    """Nearest-neighbour upsample by an integer-effective scale
+    (up_sample_2d.rs:18-25)."""
+    _, _, h, w = x.shape
+    out_h, out_w = int(h * scale), int(w * scale)
+    if out_h % h == 0 and out_w % w == 0:
+        ry, rx = out_h // h, out_w // w
+        return x.repeat_interleave(ry, dim=2).repeat_interleave(rx, dim=3)
+    rows = torch.arange(out_h, device=x.device) * h // out_h
+    cols = torch.arange(out_w, device=x.device) * w // out_w
+    return x[:, :, rows][:, :, :, cols]
+
+
+def downsample2d(x: Tensor, stride: int) -> Tensor:
+    """UpSample2D ByStride reverse=true: strided subsample."""
+    return x[:, :, ::stride, ::stride]
+
+
+def max_pool2d(
+    x: Tensor,
+    size: int,
+    stride_y: int,
+    stride_x: int,
+    padding: int = 0,
+    total_padding: Optional[int] = None,
+    pool_kind: str = "max",
+) -> Tensor:
+    """Max-pool with -inf padding.
+
+    ``padding`` is symmetric per side (torch style); ``total_padding`` when
+    given uses darknet's asymmetric split lo=tp//2, hi=tp-tp//2
+    (darknet maxpool_layer semantics, out = (in+tp-size)//stride+1).
+    ``F.max_pool2d`` pads only symmetrically, so the padding is applied
+    first with ``F.pad(value=-inf)``.
+    """
+    if pool_kind != "max":
+        raise NotImplementedError(
+            f"pool_kind={pool_kind!r} is not ported yet (ROADMAP A2)")
+    if total_padding is not None:
+        lo, hi = total_padding // 2, total_padding - total_padding // 2
+    else:
+        lo = hi = padding
+    if lo or hi:
+        x = F.pad(x, (lo, hi, lo, hi), value=float("-inf"))
+    return F.max_pool2d(x, kernel_size=size, stride=(stride_y, stride_x))
+
+
+def sum2d(xs: Sequence[Tensor]) -> Tensor:
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return out
+
+
+def concat2d(xs: Sequence[Tensor]) -> Tensor:
+    """Channel concat (axis 1 in NCHW)."""
+    return torch.cat(list(xs), dim=1)
