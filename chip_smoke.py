@@ -21,7 +21,30 @@ result line:
    post-processed again with the plain IoU version: keep masks, classes
    and instances must be identical.  The f32 forward on the card is held
    against the same model on the CPU at 64x64.
-4. card   — `nvidia-smi --query-gpu=name,power.limit` as it prints it.
+4. wgrad  — conv2d_lowch and conv2d_db (yolodl_torch.kernels), forward and
+   backward at each stride-1 low-channel conv shape of yolov4-csp at 608²,
+   batch 8, bf16, with both launch counters zeroed right before and read
+   right after: each kernel must have launched once per backward.  dW is
+   held against the plain version, max|Δ| ≤ 1e-4 · max|ref| (f32 sums over
+   up to 3 M terms in another order), and against conv2d_weight in f32,
+   ≤ 1e-3 · max|ref| (cuDNN may choose an algorithm that rounds more); y
+   and dX must be identical to autograd of the same library conv calls.
+   Then per shape the kernels' median time beside their bound, the plain
+   version's and conv2d_weight's (bf16, channels-last), and at 304²,
+   32→64, k3 the same on f32 inputs.
+5. train  — first one f32 SGD step of yolov4-csp at 64², batch 2, on the
+   card and on the CPU from the same weights and batch: losses within
+   rel 1e-4, every updated parameter within 25 % of its tensor's largest
+   update plus 4 f32 ulps of its largest entry (see train_card_vs_cpu).
+   Then yolov4-csp at 608² on the card (seed 0), train_init with the
+   default TrainConfig() (Adam β1 0.937, lr 1e-3), bench.py's synthetic
+   batch (batch 16, bf16 images, 32 boxes per image, seed 0): 2 warm-up
+   steps, 10 timed steps through make_train_step, one make_multi_step(k=2)
+   call.  Every loss finite, num_matched > 0, every parameter changed, no
+   wgrad launch.  Prints step ms (CUDA events), img/s, peak memory, a
+   profile of one step (device ms, kernels, the costliest, the card's idle
+   share) and of its parts (forward, loss, backward, optimizer).
+6. card   — `nvidia-smi --query-gpu=name,power.limit` as it prints it.
 
 The line before the last lists the kernels; the last line is
 {"ok": true, "device": {...}}.  TF32 is switched off for every f32
@@ -51,6 +74,18 @@ BATCH = 8
 MAX_DETS = 512          # non_max_suppression's default
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_FLOPS = 67e12           # H100 SXM f32, outside the tensor cores
+BF16_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
+
+# the stride-1 low-channel convs of yolov4-csp at 608² (H, Ci, Co, k);
+# B2/B3's reference shape is the third
+WGRAD_SHAPES = [(608, 3, 32, 3), (304, 64, 32, 1), (304, 32, 64, 3), (152, 128, 64, 1),
+                (152, 64, 64, 1), (152, 64, 64, 3), (152, 128, 128, 1), (76, 256, 128, 1)]
+WGRAD_REF_SHAPE = (304, 32, 64, 3)
+WGRAD_TOL = 1e-4       # dW against the plain version: f32 sums in another order
+WGRAD_LIB_TOL = 1e-3   # against conv2d_weight, whose algorithm may round more (6e-5 seen)
+TRAIN_BATCH = 16        # bench.py:20; fits the card's 80 GB (PERF.md)
+TRAIN_MAX_GT = 32       # bench.py:117
+DEVICE = "cuda"         # the wgrad and train phases' device
 
 
 def emit(obj) -> None:
@@ -115,6 +150,327 @@ def phase_kernel(iou):
               "bound_ms": bound_ms, "bound_by": bound_by}
     emit(result)
     return result
+
+
+def wgrad_bound(b, h, ci, co, k, itemsize):
+    """(bound_ms, bound_by) of one dW: xp and g read once, dW written once,
+    at 3.35 TB/s, against 2·B·H·W·k²·Ci·Co operations at the peak of the
+    inputs' type (tensor cores for bf16)."""
+    hp = h + k - 1
+    t_bytes = (b * hp * hp * ci * itemsize + b * h * h * co * itemsize
+               + 4 * k * k * ci * co) / HBM_BYTES_PER_S
+    t_ops = 2 * b * h * h * k * k * ci * co / (BF16_FLOPS if itemsize == 2 else F32_FLOPS)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def rel_err(out, ref) -> float:
+    return float((out - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+
+
+def phase_wgrad():
+    """conv2d_lowch / conv2d_db forward and backward at the flagship's
+    shapes; see the module docstring."""
+    import torch.nn.functional as F
+    from torch.nn.grad import conv2d_weight
+
+    from yolodl_torch.kernels import conv2d_db, conv2d_lowch, wgrad_db, wgrad_lowch
+    from yolodl_torch.kernels import wgrad_lowch_reference as wgrad_reference
+
+    kernels = {"wgrad_lowch": (wgrad_lowch, conv2d_lowch),
+               "wgrad_db": (wgrad_db, conv2d_db)}
+    gen = torch.Generator().manual_seed(0)
+    b = BATCH
+    cases = []
+    for h, ci, co, k in WGRAD_SHAPES:
+        x = torch.randn((b, h, h, ci), generator=gen).to(torch.bfloat16).to(DEVICE)
+        w = (torch.randn((k, k, ci, co), generator=gen) / (k * k * ci) ** 0.5).to(DEVICE)
+        gy = torch.randn((b, h, h, co), generator=gen).to(torch.bfloat16).to(DEVICE)
+        cases.append(((h, ci, co, k), x, w, gy))
+
+    # the path: counters zeroed right before, read right after
+    for fn, _ in kernels.values():
+        fn.launches = 0
+    results, backward_calls = {}, 0
+    for (h, ci, co, k), x, w, gy in cases:
+        for name, (_, conv) in kernels.items():
+            xr = x.detach().requires_grad_()
+            wr = w.detach().requires_grad_()
+            y = conv(xr, wr, k)
+            y.backward(gy)
+            backward_calls += 1
+            results[(name, h, ci, co, k)] = (y.detach(), xr.grad, wr.grad)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, (fn, _) in kernels.items()}
+    for name, n in launches.items():
+        if n != backward_calls // len(kernels):
+            raise AssertionError(f"{name}: {n} launches for "
+                                 f"{backward_calls // len(kernels)} backwards")
+
+    ref_entry = {}
+    for (h, ci, co, k), x, w, gy in cases:
+        pad = (k - 1) // 2
+        # the library calls of the Function's forward and dX, through autograd
+        xl = x.detach().requires_grad_()
+        xp_l = F.pad(xl, (0, 0, pad, pad, pad, pad)) if pad else xl
+        y_lib = F.conv2d(xp_l.permute(0, 3, 1, 2), w.to(torch.bfloat16).permute(3, 2, 0, 1))
+        y_lib = y_lib.permute(0, 2, 3, 1)
+        y_lib.backward(gy)
+        xp = (F.pad(x, (0, 0, pad, pad, pad, pad)) if pad else x).contiguous()
+        g = gy.contiguous()
+        plain = wgrad_reference(xp, g, k)
+        lib32 = conv2d_weight(xp.permute(0, 3, 1, 2).float(), (co, ci, k, k),
+                              g.permute(0, 3, 1, 2).float()).permute(2, 3, 1, 0)
+        row = {"shape": [b, h, ci, co, k], "dtype": "bfloat16"}
+        for name, (fn, _) in kernels.items():
+            y, dx, dw = results[(name, h, ci, co, k)]
+            if not torch.equal(y, y_lib) or not torch.equal(dx, xl.grad):
+                raise AssertionError(f"{name} {row['shape']}: y or dX differ from the library's")
+            err_plain, err_lib = rel_err(dw, plain), rel_err(dw, lib32)
+            if not (err_plain <= WGRAD_TOL and err_lib <= WGRAD_LIB_TOL):
+                raise AssertionError(f"{name} {row['shape']}: dW rel err {err_plain} (plain), "
+                                     f"{err_lib} (conv2d_weight)")
+            row[f"{name}_rel_err"] = err_plain
+            row[f"{name}_lib_rel_err"] = err_lib
+            row[f"{name}_ms"] = median_ms(lambda fn=fn: fn(xp, g, k, device=DEVICE), n=50)
+            if (h, ci, co, k) == WGRAD_REF_SHAPE:
+                ref_entry[name] = {"max_abs_err": float((dw - plain).abs().max())}
+        row["plain_ms"] = median_ms(lambda: wgrad_reference(xp, g, k), n=10)
+        xp_cl = xp.permute(0, 3, 1, 2)  # channels-last NCHW views
+        g_cl = g.permute(0, 3, 1, 2)
+        row["library_ms"] = median_ms(lambda: conv2d_weight(xp_cl, (co, ci, k, k), g_cl), n=50)
+        row["bound_ms"], row["bound_by"] = wgrad_bound(b, h, ci, co, k, 2)
+        emit({"phase": "wgrad", **row})
+        if (h, ci, co, k) == WGRAD_REF_SHAPE:
+            for name in kernels:
+                ref_entry[name].update(ms=row[f"{name}_ms"], plain_ms=row["plain_ms"],
+                                       library_ms=row["library_ms"], bound_ms=row["bound_ms"],
+                                       bound_by=row["bound_by"])
+            # the same shape on f32 inputs
+            x32, g32 = xp.float(), g.float()
+            plain32 = wgrad_reference(x32, g32, k)
+            row32 = {"shape": [b, h, ci, co, k], "dtype": "float32"}
+            for name, (fn, _) in kernels.items():
+                err = rel_err(fn(x32, g32, k, device=DEVICE), plain32)
+                if not err <= WGRAD_TOL:
+                    raise AssertionError(f"{name} f32: dW rel err {err} > {WGRAD_TOL}")
+                row32[f"{name}_rel_err"] = err
+                row32[f"{name}_ms"] = median_ms(lambda fn=fn: fn(x32, g32, k, device=DEVICE), n=50)
+            row32["plain_ms"] = median_ms(lambda: wgrad_reference(x32, g32, k), n=10)
+            row32["library_ms"] = median_ms(
+                lambda: conv2d_weight(x32.permute(0, 3, 1, 2), (co, ci, k, k),
+                                      g32.permute(0, 3, 1, 2)), n=50)
+            row32["bound_ms"], row32["bound_by"] = wgrad_bound(b, h, ci, co, k, 4)
+            emit({"phase": "wgrad", **row32})
+    del cases, results
+    torch.cuda.empty_cache()
+    return launches, ref_entry
+
+
+def synthetic_batch(batch, size, seed=0):
+    """bench.py:118-127: normal images, 32 boxes per image with centres in
+    [0.2, 0.8] and sizes in [0.05, 0.3], random classes, all valid."""
+    rng = np.random.default_rng(seed)
+    images = rng.normal(size=(batch, 3, size, size)).astype(np.float32)
+    boxes = rng.uniform(0.2, 0.8, (batch, TRAIN_MAX_GT, 4)).astype(np.float32)
+    boxes[..., 2:] = rng.uniform(0.05, 0.3, (batch, TRAIN_MAX_GT, 2))
+    classes = rng.integers(0, 80, (batch, TRAIN_MAX_GT)).astype(np.int32)
+    mask = np.ones((batch, TRAIN_MAX_GT), bool)
+    return images, boxes, classes, mask
+
+
+def train_card_vs_cpu(darknet):
+    """One f32 SGD step of yolov4-csp at 64², batch 2, on the card and on
+    the CPU from the same weights and batch."""
+    from yolodl_torch.graph.from_darknet import graph_from_darknet
+    from yolodl_torch.models import YoloModel
+    from yolodl_torch.train import TrainConfig, make_train_step, train_init
+    from yolodl_torch.train.lr_schedule import LrScheduleConfig
+
+    config = TrainConfig(optimizer="sgd", lr=LrScheduleConfig(kind="constant", lr=1e-2))
+    batch = [torch.from_numpy(a) for a in synthetic_batch(2, 64, seed=1)]
+    runs = {}
+    for device in ("cpu", DEVICE):
+        model = YoloModel(graph_from_darknet(darknet), device=device,
+                          generator=torch.Generator().manual_seed(0))
+        p0 = {k: v.detach().cpu().clone() for k, v in model.named_parameters()}
+        ts, opt = train_init(model, config)
+        ts, metrics = make_train_step(model, opt, config)(ts, *(a.to(device) for a in batch))
+        runs[device] = (float(metrics["total_loss"]),
+                        {k: v.detach().cpu() for k, v in model.named_parameters()})
+    (l_cpu, p_cpu), (l_card, p_card) = runs["cpu"], runs[DEVICE]
+    if not abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu):
+        raise AssertionError(f"f32 train step loss: card {l_card} vs cpu {l_cpu}")
+    # each tensor within 25 % of its largest update, plus 4 ulps of its
+    # largest entry (p - lr*g rounds once more in f32 on either device).
+    # cuDNN's f32 conv algorithms round otherwise than the CPU's, and at 64²
+    # the deepest level is 2x2: training-mode BN normalizes over 8 values
+    # there, and its backward amplifies those differences in the gradients
+    # of the layers around it.  A wrong gradient moves the update by 100 %.
+    worst, worst_key = 0.0, None
+    eps = torch.finfo(torch.float32).eps
+    for k, v in p_cpu.items():
+        tol = 0.25 * float((v - p0[k]).abs().max()) + 4 * eps * float(v.abs().max())
+        diff = float((p_card[k] - v).abs().max())
+        ratio = diff / tol if tol > 0 else (0.0 if diff == 0 else float("inf"))
+        if ratio > worst:
+            worst, worst_key = ratio, k
+    if not worst <= 1.0:
+        raise AssertionError(f"f32 train step: {worst_key} differs by {worst} of its tolerance")
+    return {"loss_card": l_card, "loss_cpu": l_cpu,
+            "param_err_of_tolerance": worst, "worst_param": worst_key}
+
+
+def is_device_work(event) -> bool:
+    """A profiler event that is work on the card (a kernel, a copy, a
+    memset), not a user annotation such as ``Optimizer.step#Adam.step``,
+    which the profiler also files under the device."""
+    return (getattr(event, "device_type", None) is not None
+            and event.device_type.name == "CUDA"
+            and not getattr(event, "is_user_annotation", False))
+
+
+def profile_step(step, ts, batch) -> dict:
+    """torch.profiler over one train step: device time, kernel count and
+    the costliest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(ts, *batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if is_device_work(e)]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+
+    kernels.sort(key=dev_us, reverse=True)
+    return {"step_kernels": sum(e.count for e in kernels),
+            "step_device_ms": sum(dev_us(e) for e in kernels) / 1e3,
+            "step_top": [[e.key[:60], e.count, dev_us(e) / 1e3] for e in kernels[:8]]}
+
+
+def breakdown_step(model, optimizer, config, batch) -> dict:
+    """The parts of one step in the step's own order — forward(train=True),
+    yolo_loss, backward, optimizer + BN clamp — each synchronized and
+    profiled on its own: device ms (profiler sum of its kernels), kernel
+    count, and ms between CUDA events around it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from yolodl_torch.loss import yolo_loss
+
+    images, boxes, classes, mask = batch
+    state = {}
+
+    def forward():
+        state["pred"] = model(images, train=True)
+
+    def loss():
+        state["out"], _ = yolo_loss(state["pred"], boxes, classes, mask, config.loss)
+
+    def backward():
+        state["out"].total_loss.backward()
+
+    def update():
+        optimizer.step()
+        model.clamp_running_vars()
+
+    optimizer.zero_grad(set_to_none=False)
+    out = {}
+    for name, fn in (("forward", forward), ("loss", loss), ("backward", backward),
+                     ("optimizer", update)):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if is_device_work(e)]
+        out[f"{name}_ms"] = start.elapsed_time(end)
+        out[f"{name}_device_ms"] = sum(e.device_time_total for e in kernels) / 1e3
+        out[f"{name}_kernels"] = len(kernels)
+    return out
+
+
+def phase_train():
+    from yolodl_torch.config import darknet_cfg as dk
+    from yolodl_torch.graph.from_darknet import graph_from_darknet
+    from yolodl_torch.kernels import wgrad_db, wgrad_lowch
+    from yolodl_torch.models import YoloModel
+    from yolodl_torch.train import TrainConfig, make_multi_step, make_train_step, train_init
+
+    darknet = dk.Darknet.load(CFG)
+    parity = train_card_vs_cpu(darknet)
+
+    model = YoloModel(graph_from_darknet(darknet), device=DEVICE,
+                      generator=torch.Generator().manual_seed(0))
+    config = TrainConfig()
+    ts, opt = train_init(model, config)
+    images, boxes, classes, mask = synthetic_batch(TRAIN_BATCH, IMAGE_SIZE)
+    batch = (torch.from_numpy(images).to(torch.bfloat16).to(DEVICE),
+             *(torch.from_numpy(a).to(DEVICE) for a in (boxes, classes, mask)))
+    p0 = {k: v.detach().clone() for k, v in model.named_parameters()}
+    step = make_train_step(model, opt, config)
+
+    torch.cuda.reset_peak_memory_stats()
+    wgrad_lowch.launches = wgrad_db.launches = 0
+    losses, matched = [], []
+    for _ in range(2):  # warm-up
+        ts, m = step(ts, *batch)
+        losses.append(m["total_loss"])
+        matched.append(m["num_matched"])
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(11)]
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(10):
+        ts, m = step(ts, *batch)
+        events[i + 1].record()
+        losses.append(m["total_loss"])
+        matched.append(m["num_matched"])
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 10
+    step_ms = sorted(events[i].elapsed_time(events[i + 1]) for i in range(10))
+
+    multi = make_multi_step(model, opt, config, 2)
+    stacked = tuple(x.unsqueeze(0).expand(2, *x.shape) for x in batch)
+    t0 = time.perf_counter()
+    ts, m = multi(ts, *stacked)
+    torch.cuda.synchronize()
+    multi_ms = (time.perf_counter() - t0) * 1e3 / 2
+    losses.extend(m["total_loss"].unbind(0))
+    matched.extend(m["num_matched"].unbind(0))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    loss_values = [float(v) for v in losses]
+    if not all(np.isfinite(loss_values)) or len(loss_values) != 14:
+        raise AssertionError(f"train losses {loss_values}")
+    if not all(int(v) > 0 for v in matched):
+        raise AssertionError("a step matched no target")
+    changed = sum(int(not torch.equal(v, p0[k])) for k, v in model.named_parameters())
+    if changed != len(p0):
+        raise AssertionError(f"{len(p0) - changed} of {len(p0)} parameters did not change")
+    if wgrad_lowch.launches or wgrad_db.launches:
+        raise AssertionError("the train step launched a wgrad kernel")
+    if ts.step != 14:
+        raise AssertionError(f"step count {ts.step} != 14")
+
+    try:  # auxiliary: a profiler that sees no device time is not a failure
+        profiled = {**profile_step(step, ts, batch), **breakdown_step(model, opt, config, batch)}
+    except Exception as e:
+        profiled = {"profile": f"not measured: {type(e).__name__}: {e}"}
+    median = step_ms[len(step_ms) // 2]
+    if "step_device_ms" in profiled:  # the card's idle share of a median step
+        profiled["device_idle_share"] = 1.0 - profiled["step_device_ms"] / median
+    emit({"phase": "train", "model": "yolov4-csp", "image_size": IMAGE_SIZE,
+          "batch": TRAIN_BATCH, "dtype": "bfloat16", "optimizer": "adam",
+          "steps": ts.step, "step_ms_median": median, "step_ms_min": step_ms[0],
+          "step_ms_max": step_ms[-1], "host_ms_per_step": wall_ms,
+          "multi_step_ms_per_step": multi_ms, "img_per_s": TRAIN_BATCH * 1e3 / median,
+          "peak_memory_gb": peak_gb, "first_loss": loss_values[0],
+          "last_loss": loss_values[-1], "num_matched": int(matched[-1]),
+          "card_vs_cpu": parity, **profiled})
+    del model, opt, ts, batch, stacked
+    torch.cuda.empty_cache()
 
 
 def profile_batch(svc, stacked, pred) -> dict:
@@ -318,6 +674,8 @@ def main() -> int:
           "libraries": [str(_build.library_path(n).relative_to(REPO)) for n in _build.SOURCES]})
     k = phase_kernel(iou)
     launches = phase_serve(iou)
+    wgrad_launches, wgrad = phase_wgrad()
+    phase_train()
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -328,7 +686,15 @@ def main() -> int:
         "replaces": "yolodl_tpu/kernels/iou_pallas.py:32",
         "launches": launches, "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "kernel_ms": k["ms"], "plain_ms": k["plain_ms"],
-        "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None}]})
+        "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None}] + [{
+        "name": name, "route": "cuda", "source": f"yolodl_torch/csrc/{name}.cu",
+        "replaces": replaces, "launches": wgrad_launches[name],
+        "max_abs_err": wgrad[name]["max_abs_err"], "ms": wgrad[name]["ms"],
+        "kernel_ms": wgrad[name]["ms"], "plain_ms": wgrad[name]["plain_ms"],
+        "bound_ms": wgrad[name]["bound_ms"], "bound_by": wgrad[name]["bound_by"],
+        "library_ms": wgrad[name]["library_ms"]}
+        for name, replaces in (("wgrad_lowch", "yolodl_tpu/kernels/wgrad_pallas.py:49"),
+                               ("wgrad_db", "yolodl_tpu/kernels/wgrad_db.py:79"))]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

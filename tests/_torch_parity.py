@@ -1,5 +1,6 @@
-"""Shared set-up of the whole-model parity tests (test_torch_model*.py,
-test_torch_serve.py): the JAX reference and the port with the same weights."""
+"""Shared set-up of the parity tests of the port (test_torch_*.py): the JAX
+reference and the port with the same weights, random predictions and
+targets, and the training tests' models, batches and step loops."""
 
 import os
 
@@ -10,9 +11,13 @@ import torch
 
 from yolodl_tpu.graph.from_darknet import load_darknet_graph as j_load
 from yolodl_tpu.models import YoloModel as JYoloModel
+from yolodl_tpu.train import loop as j_loop
+from yolodl_tpu.train.lr_schedule import LrScheduleConfig as JLr
 from yolodl_torch.bridge import params_from_jax
 from yolodl_torch.graph.from_darknet import load_darknet_graph as t_load
 from yolodl_torch.models import YoloModel
+from yolodl_torch.train import loop as t_loop
+from yolodl_torch.train.lr_schedule import LrScheduleConfig as TLr
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -44,6 +49,68 @@ def reference_and_port(cfg_name, seed=0):
     return jm, params, state, tm
 
 
+def head_infos(cfg_name, size=64):
+    """(port infos, reference infos, num_classes) of a darknet cfg's detect
+    heads at ``size``², read from one port forward on zeros."""
+    from yolodl_tpu.ops.detect import DetectionInfo as JInfo
+
+    path = os.path.join(REPO, "cfg", "darknet", f"{cfg_name}.cfg")
+    tm = YoloModel(t_load(path), device="cpu")
+    with torch.no_grad():
+        pred = tm(torch.zeros((1, 3, size, size)))
+    j_infos = tuple(JInfo(**{f: getattr(i, f) for f in
+                             ("feature_h", "feature_w", "anchors", "flat_begin",
+                              "flat_end", "class_act")}) for i in pred.infos)
+    return pred.infos, j_infos, pred.num_classes
+
+
+def random_prediction(infos, j_infos, num_classes, batch, seed, sigmas=False):
+    """The same random MergedDetection for the port and the reference:
+    boxes inside the image with positive sizes, normal logits."""
+    from yolodl_tpu.ops.detect import MergedDetection as JMerged
+    from yolodl_torch.ops.detect import MergedDetection as TMerged
+
+    rng = np.random.default_rng(seed)
+    n = infos[-1].flat_end
+    arrays = {
+        "cycxhw": np.concatenate([rng.uniform(0.1, 0.9, (batch, n, 2)),
+                                  rng.uniform(0.02, 0.5, (batch, n, 2))], -1),
+        "obj_logit": rng.normal(0, 2, (batch, n)),
+        "class_logit": rng.normal(0, 2, (batch, n, num_classes)),
+    }
+    if sigmas:
+        arrays["sigmas"] = rng.uniform(0.05, 1.0, (batch, n, 4))
+    arrays = {k: v.astype(np.float32) for k, v in arrays.items()}
+    j_pred = JMerged(infos=j_infos, **{k: jnp.asarray(v) for k, v in arrays.items()})
+    t_pred = TMerged(infos=infos, **{k: torch.from_numpy(v) for k, v in arrays.items()})
+    return arrays, j_pred, t_pred
+
+
+def random_targets(batch, max_gt, seed, num_classes=80):
+    """bench.py's synthetic ground truth: centres in [0.2, 0.8], sizes in
+    [0.05, 0.3], random classes; the last two boxes of image 0 masked off."""
+    rng = np.random.default_rng(seed)
+    boxes = rng.uniform(0.2, 0.8, (batch, max_gt, 4)).astype(np.float32)
+    boxes[..., 2:] = rng.uniform(0.05, 0.3, (batch, max_gt, 2))
+    classes = rng.integers(0, num_classes, (batch, max_gt)).astype(np.int32)
+    mask = np.ones((batch, max_gt), bool)
+    mask[0, -2:] = False
+    return boxes, classes, mask
+
+
+def named_leaves(tree):
+    """{'<node>/<leaf>' or '<node>/bn/<leaf>': np.ndarray} of a reference
+    params or state tree (the spelling of the reference's tree paths)."""
+    out = {}
+    for path, node in tree.items():
+        for k, v in node.items():
+            if isinstance(v, dict):
+                out.update({f"{path}/{k}/{kk}": np.asarray(vv) for kk, vv in v.items()})
+            else:
+                out[f"{path}/{k}"] = np.asarray(v)
+    return out
+
+
 def assert_forward_matches(cfg_name, size=64):
     """Port and reference forward on the same seeded input, NCHW and NHWC:
     rtol 1e-4 with atol 1e-4 * max|ref| (f32 convolutions sum in another
@@ -64,3 +131,63 @@ def assert_forward_matches(cfg_name, size=64):
         np.testing.assert_allclose(o, r, rtol=1e-4, atol=1e-4 * np.abs(r).max())
         np.testing.assert_array_equal(getattr(out_nhwc, f).numpy(), o)
     assert [i.feature_h for i in out.infos] == [i.feature_h for i in ref.infos]
+
+
+# -- the training tests' set-up: yolov4-tiny at 64², batch 2, f32
+
+TRAIN_B, TRAIN_SIZE, TRAIN_MAX_GT = 2, 64, 8
+
+
+def train_batches(n, seed=0):
+    """``n`` seeded (images, boxes, classes, mask) numpy batches."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        images = rng.uniform(0, 1, (TRAIN_B, 3, TRAIN_SIZE, TRAIN_SIZE)).astype(np.float32)
+        out.append((images, *random_targets(TRAIN_B, TRAIN_MAX_GT, seed * 100 + i)))
+    return out
+
+
+def train_configs(**kw):
+    """(reference, port) TrainConfigs with a constant lr ``kw["lr"]``."""
+    lr = kw.pop("lr")
+    return (j_loop.TrainConfig(lr=JLr(kind="constant", lr=lr), **kw),
+            t_loop.TrainConfig(lr=TLr(kind="constant", lr=lr), **kw))
+
+
+_TRAIN_MODELS = {}
+
+
+def train_models():
+    """One reference model and one port model per worker; every test
+    reloads the port's weights from the shared numpy trees."""
+    if not _TRAIN_MODELS:
+        _TRAIN_MODELS["v"] = reference_and_port("yolov4-tiny")
+    jm, params, state, tm = _TRAIN_MODELS["v"]
+    params_from_jax(params, state, tm)
+    return jm, params, state, tm
+
+
+def train_reference(jm, params, state, j_cfg, batches, accum=1):
+    """The reference's train step over ``batches`` → (TrainState, losses)."""
+    opt = j_loop.make_optimizer(j_cfg)
+    p = jax.tree_util.tree_map(jnp.asarray, params)
+    ts = j_loop.TrainState(p, jax.tree_util.tree_map(jnp.asarray, state), opt.init(p),
+                           jnp.zeros((), jnp.int32), None)
+    step = j_loop.make_train_step(jm, opt, j_cfg, accum=accum)
+    losses = []
+    for batch in batches:
+        ts, m = step(ts, *map(jnp.asarray, batch))
+        losses.append(float(m["total_loss"]))
+    return ts, losses
+
+
+def train_port(tm, t_cfg, batches, accum=1):
+    """The port's train step over ``batches`` → (TrainState, losses)."""
+    ts, opt = t_loop.train_init(tm, t_cfg)
+    step = t_loop.make_train_step(tm, opt, t_cfg, accum=accum)
+    losses = []
+    for batch in batches:
+        ts, m = step(ts, *map(torch.from_numpy, batch))
+        losses.append(float(m["total_loss"]))
+    return ts, losses

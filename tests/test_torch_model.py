@@ -114,8 +114,13 @@ def test_port_imports_neither_jax_nor_reference():
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "             or k.startswith('yolodl_tpu'))\n"
         "n = sum(1 for k in sys.modules if k.startswith('yolodl_torch'))\n"
-        "print(n, bad)\n"
-        "sys.exit(1 if bad or n < 20 else 0)\n"
+        "need = {'yolodl_torch.' + m for m in (\n"
+        "    'train.loop', 'train.lr_schedule', 'train.ema', 'loss.matcher',\n"
+        "    'loss.yolo_loss', 'loss.benchmark', 'kernels._util',\n"
+        "    'kernels.wgrad_lowch', 'kernels.wgrad_db')}\n"
+        "missing = sorted(need - set(sys.modules))\n"
+        "print(n, bad, missing)\n"
+        "sys.exit(1 if bad or missing or n < 30 else 0)\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)

@@ -11,7 +11,7 @@ module needs nothing of JAX.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,9 +23,15 @@ def _path_of(key: str) -> str:
     return key.replace("/", ".")
 
 
-def params_from_jax(params: Dict, state: Dict) -> Dict[str, torch.Tensor]:
+def params_from_jax(params: Dict, state: Dict, model: Optional[torch.nn.Module] = None
+                    ) -> Dict[str, torch.Tensor]:
     """Reference (params, state) trees → the port's ``state_dict`` (f32,
-    CPU).  HWIO kernels become OIHW by ``permute(3, 2, 0, 1)``."""
+    CPU).  HWIO kernels become OIHW by ``permute(3, 2, 0, 1)``.
+
+    With ``model``, the values are also copied into the model's own
+    parameters and BN buffers in place (on whatever device they live), and
+    every entry of the model's ``state_dict`` must be given: two trainers
+    can then start from the same weights and running statistics."""
     sd: Dict[str, torch.Tensor] = {}
     for path, p in params.items():
         prefix = f"layers.{module_key(path)}"
@@ -39,12 +45,22 @@ def params_from_jax(params: Dict, state: Dict) -> Dict[str, torch.Tensor]:
         prefix = f"layers.{module_key(path)}"
         for name, value in s.get("bn", {}).items():
             sd[f"{prefix}.bn.{name}"] = torch.from_numpy(np.array(value, np.float32))
+    if model is not None:
+        target = model.state_dict()
+        if set(target) != set(sd):
+            raise KeyError(f"reference trees and model disagree: "
+                           f"{sorted(set(target) ^ set(sd))[:8]}")
+        with torch.no_grad():
+            for key, t in target.items():
+                t.copy_(sd[key])
     return sd
 
 
 def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Tuple[Dict, Dict]:
-    """The port's ``state_dict`` → reference (params, state) trees of numpy
-    arrays; the inverse of :func:`params_from_jax`."""
+    """The port's ``state_dict`` (parameters and BN running stats) →
+    reference (params, state) trees of f32 numpy arrays; the inverse of
+    :func:`params_from_jax`.  Reads the port's trained weights back for a
+    comparison with the reference's."""
     params: Dict = {}
     state: Dict = {}
     for key, t in state_dict.items():

@@ -28,7 +28,11 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "yolodl_torch"
 
 # kernel name → source file under csrc/
-SOURCES: Dict[str, str] = {"iou": "iou.cu"}
+SOURCES: Dict[str, str] = {
+    "iou": "iou.cu",
+    "wgrad_lowch": "wgrad_lowch.cu",
+    "wgrad_db": "wgrad_db.cu",
+}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,0 +1,56 @@
+"""Double-buffered conv weight gradient: the hand-written CUDA kernel and its
+plain version.
+
+Counterpart of ``yolodl_tpu/kernels/wgrad_db.py`` (``wgrad_db``,
+``conv2d_db``).  The kernel is ``yolodl_torch/csrc/wgrad_db.cu``: the same
+function as ``wgrad_lowch``, with the halo copied by ``cp.async`` into a
+double buffer and one accumulator per tap.  The reference's padding of ci
+to 128 and of W to 8 served the TPU's tiling only and is not carried over.
+
+:func:`wgrad_db` takes the kernel for CUDA tensors and the plain version
+:func:`wgrad_db_reference` for CPU tensors; on CUDA tensors it launches or
+raises.  ``wgrad_db.launches`` counts the launches of the kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ._util import check_wgrad_args, launch_wgrad, make_conv2d_with_wgrad, wgrad_reference
+
+Tensor = torch.Tensor
+
+# the kernel is instantiated for these kernel sizes (one accumulator per tap)
+KERNEL_SIZES = (1, 3, 5)
+
+
+def wgrad_db_reference(xp: Tensor, g: Tensor, k: int) -> Tensor:
+    """Plain PyTorch version: per-tap f32 einsum, ``[k, k, Ci, Co]`` f32
+    (the same function as ``wgrad_lowch_reference``)."""
+    return wgrad_reference(xp, g, k)
+
+
+def wgrad_db(xp: Tensor, g: Tensor, k: int, device="cuda") -> Tensor:
+    """dW of a stride-1 "same" conv from pre-padded input, double-buffered.
+
+    xp: ``[B, H+k−1, W+k−1, Ci]``, g: ``[B, H, W, Co]``, both float32 or
+    both bfloat16, contiguous, on ``device`` → ``[k, k, Ci, Co]`` f32.
+    """
+    device = check_wgrad_args("wgrad_db", xp, g, k, device)
+    if device.type == "cpu":
+        return wgrad_db_reference(xp, g, k)
+    if k not in KERNEL_SIZES:
+        raise ValueError(f"wgrad_db: the kernel takes k in {KERNEL_SIZES}, got {k}")
+    from . import _build
+
+    out = launch_wgrad(_build.load("wgrad_db"), "yolodl_wgrad_db", xp, g, k)
+    wgrad_db.launches += 1
+    return out
+
+
+wgrad_db.launches = 0
+
+conv2d_db = make_conv2d_with_wgrad(
+    wgrad_db,
+    "Dense stride-1 'same' NHWC conv whose dW comes from the double-buffered "
+    "wgrad_db kernel.")

@@ -7,9 +7,13 @@ checkpoint maps one to one through ``bridge.py``.  A ``ModuleDict`` key
 cannot hold ``.``, so a path's dots are written as ``/`` there
 (:func:`module_key`).
 
-Compute is NCHW.  ``forward(x, data_format=...)`` takes NCHW or NHWC input,
-as the reference's ``apply`` does, and returns a :class:`MergedDetection`
-whose fields keep the reference's ``[B, N, ...]`` layout.
+Compute is NCHW.  ``forward(x, data_format=..., train=...)`` takes NCHW or
+NHWC input, as the reference's ``apply`` does, and returns a
+:class:`MergedDetection` whose fields keep the reference's ``[B, N, ...]``
+layout.  ``train=True`` is the reference's ``apply(train=True)``: BN
+normalizes with batch statistics, and the new running statistics, which the
+reference returns as ``new_state``, are written into the BN buffers in
+place.  The mode is that keyword, never ``nn.Module.training``.
 
 This slice ports the node kinds that the darknet YOLO cfgs of the serving
 path use: Input, ConvBn2D, Conv2D, DarknetRoute, DarknetShortcut, MaxPool,
@@ -22,6 +26,7 @@ are not ported: the port computes as the reference does with
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, Optional, Tuple
 
@@ -33,7 +38,7 @@ from .._device import resolve_device
 from ..config import newslab as cfg
 from ..graph import Graph
 from ..graph.ir import MERGE_DETECT_2D
-from ..ops import conv, detect, simple
+from ..ops import conv, detect, norm, simple
 
 Tensor = torch.Tensor
 
@@ -55,6 +60,15 @@ _NOT_PORTED = {
 _PORTED = (cfg.Input, cfg.ConvBn2D, cfg.Conv2D, cfg.DarknetRoute,
            cfg.DarknetShortcut, cfg.MaxPool, cfg.UpSample2D, cfg.Detect2D,
            cfg.MergeDetect2D)
+
+
+def _detach(out):
+    """``stop_gradient`` of a node output: a tensor or a detection dataclass."""
+    if isinstance(out, Tensor):
+        return out.detach()
+    return dataclasses.replace(out, **{
+        f.name: getattr(out, f.name).detach() for f in dataclasses.fields(out)
+        if isinstance(getattr(out, f.name), Tensor)})
 
 
 def module_key(path: str) -> str:
@@ -142,6 +156,12 @@ class GraphModel(nn.Module):
             key: node.path if node.path is not None else f"node{key}"
             for key, node in graph.nodes.items()
         }
+        # darknet stopbackward/onlyforward (set by graph_from_darknet): these
+        # nodes' outputs are detached, so their parameters get no gradient
+        # and nothing flows upstream through them; BN running stats still
+        # update in the training forward, as darknet's forward does
+        sg_paths = getattr(graph, "stop_gradient_paths", frozenset()) or frozenset()
+        self._sg_keys = {key for key, name in self._pname.items() if name in sg_paths}
 
         self.layers = nn.ModuleDict()
         for key in graph.order:
@@ -172,10 +192,17 @@ class GraphModel(nn.Module):
     def _node(self, key: int) -> ConvNode:
         return self.layers[module_key(self._pname[key])]
 
-    def forward(self, x: Tensor, data_format: str = "NCHW"):
-        """Inference forward (BN on running stats) → the graph output, a
-        MergedDetection for YOLO.  The training forward comes with the
-        training slice (ROADMAP A6)."""
+    def forward(self, x: Tensor, data_format: str = "NCHW", *, train: bool = False):
+        """Forward → the graph output, a MergedDetection for YOLO.
+
+        ``train=False`` normalizes BN with the running statistics.
+        ``train=True`` normalizes with the batch statistics and writes the
+        updated running mean/var into each ``DarkBatchNorm``'s buffers in
+        place, under ``torch.no_grad()`` — the port's form of the
+        reference's returned ``new_state``.  Successive calls (micro-batches)
+        therefore thread the state sequentially, as the reference's
+        ``lax.scan`` over micro-batches does.
+        """
         if data_format == "NHWC":
             x = x.permute(0, 3, 1, 2)
         elif data_format != "NCHW":
@@ -198,8 +225,12 @@ class GraphModel(nn.Module):
                     outputs[key] = outputs[ik.single_key]
             elif isinstance(layer, cfg.ConvBn2D):
                 m = self._node(key)
-                outputs[key], _ = conv.conv_bn_apply(
-                    m.params(), m.state(), outputs[ik.single_key], layer, False)
+                outputs[key], new_state = conv.conv_bn_apply(
+                    m.params(), m.state(), outputs[ik.single_key], layer, train)
+                if train and m.bn is not None:
+                    with torch.no_grad():
+                        m.bn.mean.copy_(new_state["bn"]["mean"])
+                        m.bn.var.copy_(new_state["bn"]["var"])
             elif isinstance(layer, cfg.Conv2D):
                 m = self._node(key)
                 outputs[key] = conv.conv2d_apply(
@@ -255,7 +286,27 @@ class GraphModel(nn.Module):
                     [outputs[k] for k in ik.iter_keys()])
             else:  # pragma: no cover - __init__ rejects every other kind
                 raise NotImplementedError(layer.kind)
+
+            if key in self._sg_keys:
+                outputs[key] = _detach(outputs[key])
         return outputs[self.output_key]
+
+    @torch.no_grad()
+    def clamp_running_vars(self) -> None:
+        """Clamp every BN running variance to its node's var_min/var_max, in
+        place (model.rs:412-422 → dark_batch_norm.rs:148-172).  Called after
+        each optimizer step."""
+        for key in self.graph.order:
+            layer = self.graph.nodes[key].config
+            if not isinstance(layer, cfg.ConvBn2D):
+                continue
+            bn_cfg = layer.bn
+            if bn_cfg.var_min is None and bn_cfg.var_max is None:
+                continue
+            m = self._node(key)
+            if m.bn is not None:
+                m.bn.var.copy_(norm.clamp_running_var(
+                    m.bn.state(), bn_cfg.var_min, bn_cfg.var_max)["var"])
 
 
 class YoloModel(GraphModel):

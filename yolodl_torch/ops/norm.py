@@ -12,7 +12,7 @@ Layout: activations NCHW; stats and params are [C] vectors for axis 1.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -64,3 +64,17 @@ def batch_norm_apply(
         shift = shift + bias
     return (x * inv.to(x.dtype).view(view) + shift.to(x.dtype).view(view)), new_state
 
+
+def clamp_running_var(
+    state: Dict[str, Tensor], var_min: Optional[float], var_max: Optional[float]
+) -> Dict[str, Tensor]:
+    """Clamp the running variance (dark_batch_norm.rs:148-172), applied after
+    every optimizer step in the training loop."""
+    if var_min is None and var_max is None:
+        return state
+    var = state["var"]
+    if var_min is not None:
+        var = torch.clamp(var, min=var_min)
+    if var_max is not None:
+        var = torch.clamp(var, max=var_max)
+    return {**state, "var": var}

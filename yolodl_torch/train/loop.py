@@ -1,0 +1,324 @@
+"""Single-device training step.
+
+Counterpart of ``yolodl_tpu/train/loop.py`` (``train/src/train/
+single_gpu.rs``): forward → YOLO loss → backward → gradient clipping → Adam
+(beta1 = config momentum) or SGD → BN running-var clamp → step count → EMA.
+
+The reference's pure functions over a ``TrainState`` pytree become eager
+PyTorch on state that lives where PyTorch keeps it: the parameters and the
+BN running statistics in the model (updated in place; the training forward
+writes the statistics), the optimizer state in a ``torch.optim`` optimizer,
+gradients in each parameter's ``.grad``.  A step returns its metrics as
+device tensors and reads nothing back, so a host loop can check the loss
+when it chooses (a non-finite total loss must abort training,
+multi_gpu.rs:198-204).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from ..loss import LossConfig, yolo_loss
+from ..models.builder import YoloModel
+from .ema import ema_init, ema_update
+from .lr_schedule import LrScheduleConfig, make_schedule_fn
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The reference's TrainConfig: the same fields and defaults."""
+
+    lr: LrScheduleConfig = LrScheduleConfig(kind="constant", lr=1e-3)
+    optimizer: str = "adam"       # "adam" (reference) | "sgd" (darknet native)
+    momentum: float = 0.937       # Adam beta1 (multi_gpu.rs:425-434) / SGD momentum
+    beta2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    clip_grad_value: Optional[float] = None
+    clip_grad_norm: Optional[float] = None
+    loss: LossConfig = LossConfig()
+    use_ema: bool = False
+    ema_decay: float = 0.9999
+    # per-step obj/class quality metrics (benchmark.rs taxonomy) at this
+    # confidence threshold
+    benchmark_confidence: Optional[float] = None
+    # per-parameter |w|max / |grad|max scalars in the metrics dict
+    log_weights_and_grads: bool = False
+    # the first image's objectness probabilities (metrics["obj_sample"], [N])
+    return_obj_sample: bool = False
+    # mean decoded cy/cx/h/w scalars per step
+    debug_stat: bool = False
+    # training.loss.impl=Darknet (the darknet-exact loss): not ported yet
+    darknet_loss: Optional[tuple] = None
+    # compute dtype of the forward/backward ("bfloat16" | None).  The images
+    # are cast at step entry and every conv casts its f32 weight to the
+    # activation dtype (ops/conv.py), so parameters, optimizer state and BN
+    # running stats stay float32.  Explicit casts, not autocast, so the same
+    # operations run in bf16 as in the reference.  None = the batch's dtype.
+    compute_dtype: Optional[str] = None
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The reference's TrainState: ``params`` and ``state`` (BN running
+    stats) are the model's parameters and buffers, ``opt_state`` is the
+    optimizer, ``step`` counts the steps taken (a host int) and
+    ``ema_params`` maps parameter names to their averages (None when EMA is
+    off)."""
+
+    model: YoloModel
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+    ema_params: Optional[Dict[str, Tensor]] = None
+
+
+def make_optimizer(config: TrainConfig, params) -> torch.optim.Optimizer:
+    """The optimizer the reference's optax chain ends in.
+
+    SGD: ``torch.optim.SGD(momentum, dampening=0, nesterov=False,
+    weight_decay)`` = ``optax.add_decayed_weights`` + ``optax.sgd``.  Adam:
+    ``torch.optim.Adam``/``AdamW`` with ``betas=(momentum, beta2)`` and
+    ``eps``, whose update is optax's ``m̂/(√v̂ + eps)``.  The learning rate
+    is not fixed here: the train step writes ``make_schedule_fn(config.lr)``
+    of the update count into every param group's ``lr`` before each
+    ``optimizer.step()`` (the count before the increment, as optax reads
+    it: 0 on the first update).  Gradient clipping is done by the step, in
+    the reference's chain order (value, then global norm).
+    """
+    lr0 = make_schedule_fn(config.lr)(0)
+    if config.optimizer == "sgd":
+        return torch.optim.SGD(params, lr=lr0, momentum=config.momentum, dampening=0.0,
+                               nesterov=False, weight_decay=config.weight_decay)
+    if config.optimizer == "adam":
+        betas = (config.momentum, config.beta2)
+        if config.weight_decay:
+            return torch.optim.AdamW(params, lr=lr0, betas=betas, eps=config.eps,
+                                     weight_decay=config.weight_decay)
+        return torch.optim.Adam(params, lr=lr0, betas=betas, eps=config.eps)
+    raise ValueError(f"unknown optimizer {config.optimizer!r}")
+
+
+def train_init(model: YoloModel, config: TrainConfig,
+               seed: Optional[int] = None) -> Tuple[TrainState, torch.optim.Optimizer]:
+    """Optimizer, step 0 and EMA for ``model``, on the model's device.
+
+    The reference's ``train_init`` also draws the parameters from ``seed``;
+    here the model already holds them (drawn from its generator when it was
+    built, or loaded).  Pass ``seed`` to draw them again from
+    ``torch.Generator().manual_seed(seed)``.  Every parameter gets a zero
+    gradient, so that one which receives none (a frozen layer) still takes
+    the optimizer's update, as it does in the reference.
+    """
+    if seed is not None:
+        model.init(torch.Generator().manual_seed(seed))
+    params = list(model.parameters())
+    for p in params:
+        p.grad = torch.zeros_like(p)
+    optimizer = make_optimizer(config, params)
+    ema = ema_init(dict(model.named_parameters())) if config.use_ema else None
+    return TrainState(model=model, optimizer=optimizer, step=0, ema_params=ema), optimizer
+
+
+def collect_step_metrics(config: TrainConfig, out, aux, pred) -> dict:
+    """Per-step metrics from the loss output: the losses always; the
+    benchmark telemetry, the decoded-box debug stats and the objectness
+    heatmap sample per the config flags.  Values are detached device
+    tensors."""
+    metrics = {
+        "total_loss": out.total_loss,
+        "iou_loss": out.iou_loss,
+        "classification_loss": out.classification_loss,
+        "objectness_loss": out.objectness_loss,
+        "num_matched": aux.matching.num_matched(),
+    }
+    if out.uncertainty_loss is not None:  # gaussian heads
+        metrics["uncertainty_loss"] = out.uncertainty_loss
+    if config.benchmark_confidence is not None:
+        from ..loss.benchmark import yolo_benchmark
+
+        bench = yolo_benchmark(pred, aux.matching, config.benchmark_confidence)
+        metrics.update({
+            "obj_accuracy": bench.obj_accuracy,
+            "obj_recall": bench.obj_recall,
+            "obj_precision": bench.obj_precision,
+            "class_accuracy": bench.class_accuracy,
+        })
+    if config.debug_stat:
+        mean = torch.mean(pred.cycxhw.to(torch.float32), dim=(0, 1))
+        metrics.update({
+            "debug/cy_mean": mean[0], "debug/cx_mean": mean[1],
+            "debug/h_mean": mean[2], "debug/w_mean": mean[3],
+        })
+    if config.return_obj_sample:
+        metrics["obj_sample"] = pred.obj_prob()[0]
+    return {k: v.detach() for k, v in metrics.items()}
+
+
+def make_batch_grads(
+    model: YoloModel,
+    config: TrainConfig,
+    data_format: str = "NCHW",
+    accum: int = 1,
+) -> Callable:
+    """(images, boxes, classes, mask) → metrics for one logical batch; the
+    gradient is left in each parameter's ``.grad`` (which must be zero on
+    entry) and the BN running stats are updated in the model.
+
+    ``accum > 1`` is gradient accumulation with darknet's
+    ``batch``/``subdivisions`` semantics: ``accum`` sequential micro-batches,
+    each running forward and backward before the next starts, the gradient
+    averaged over them, the BN running stats threaded through them in
+    order.  Loss metrics are micro-batch means; ``num_matched`` is the sum.
+    """
+    if accum < 1:
+        raise ValueError(f"accum must be >= 1, got {accum}")
+    if config.darknet_loss is not None:
+        raise NotImplementedError(
+            "the darknet-exact loss (TrainConfig.darknet_loss) is not ported to "
+            "yolodl_torch yet (ROADMAP A9)")
+    dtype = getattr(torch, config.compute_dtype) if config.compute_dtype is not None else None
+
+    def micro_batch(images, gt_boxes, gt_classes, gt_mask):
+        if dtype is not None:
+            images = images.to(dtype)
+        pred = model(images, data_format, train=True)
+        out, aux = yolo_loss(pred, gt_boxes, gt_classes, gt_mask, config.loss)
+        out.total_loss.backward()
+        return collect_step_metrics(config, out, aux, pred)
+
+    def batch_grads(images, gt_boxes, gt_classes, gt_mask):
+        if accum == 1:
+            return micro_batch(images, gt_boxes, gt_classes, gt_mask)
+        batch = images.shape[0]
+        if batch % accum:
+            raise ValueError(
+                f"batch size {batch} is not divisible by accumulation_steps {accum}")
+        mb = batch // accum
+        ys = [micro_batch(*(x[i * mb:(i + 1) * mb]
+                            for x in (images, gt_boxes, gt_classes, gt_mask)))
+              for i in range(accum)]
+        with torch.no_grad():
+            for p in model.parameters():
+                if p.grad is not None:
+                    p.grad.div_(accum)
+        return {
+            k: (torch.sum(torch.stack([y[k] for y in ys]), 0) if k == "num_matched"
+                else ys[0][k] if k == "obj_sample"  # first image overall
+                else torch.mean(torch.stack([y[k] for y in ys]), 0))
+            for k in ys[0]
+        }
+
+    return batch_grads
+
+
+@torch.no_grad()
+def _clip_gradients(params, config: TrainConfig) -> None:
+    """optax.clip, then optax.clip_by_global_norm, on the ``.grad``s."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if config.clip_grad_value is not None:
+        for g in grads:
+            g.clamp_(-config.clip_grad_value, config.clip_grad_value)
+    if config.clip_grad_norm is not None:
+        max_norm = config.clip_grad_norm
+        g_norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
+        trigger = g_norm < max_norm
+        for g in grads:
+            g.copy_(torch.where(trigger, g, (g / g_norm) * max_norm))
+
+
+def make_train_step(
+    model: YoloModel,
+    optimizer: torch.optim.Optimizer,
+    config: TrainConfig,
+    data_format: str = "NCHW",
+    accum: int = 1,
+) -> Callable:
+    """The train step: (TrainState, images, gt_boxes, gt_classes, gt_mask)
+    → (TrainState, metrics).
+
+    Per step: zero grads → forward(train=True) → ``yolo_loss`` → backward
+    (per micro-batch, see :func:`make_batch_grads`) → clip → optimizer step
+    at the scheduled lr → ``clamp_running_vars`` → step += 1 → EMA.  The
+    state is updated in place and returned; the metrics are device tensors.
+    """
+    batch_grads = make_batch_grads(model, config, data_format, accum)
+    schedule = make_schedule_fn(config.lr)
+    params = list(model.parameters())
+
+    def step(ts: TrainState, images, gt_boxes, gt_classes, gt_mask):
+        optimizer.zero_grad(set_to_none=False)
+        metrics = batch_grads(images, gt_boxes, gt_classes, gt_mask)
+        if config.log_weights_and_grads:  # the gradients before clipping
+            grad_maxima = _maxima("grads_max", (
+                (key, p.grad) for key, p in model.named_parameters()))
+        _clip_gradients(params, config)
+        lr = schedule(ts.step)
+        for group in optimizer.param_groups:
+            group["lr"] = lr
+        optimizer.step()
+        model.clamp_running_vars()
+        ts.step += 1
+        if ts.ema_params is not None:
+            ema_update(ts.ema_params, dict(model.named_parameters()), ts.step,
+                       config.ema_decay)
+        if config.log_weights_and_grads:
+            metrics.update(param_maxima(model))
+            metrics.update(grad_maxima)
+        return ts, metrics
+
+    return step
+
+
+def _tree_name(key: str) -> str:
+    """``layers.<module key>.<leaf…>`` → the reference's tree path
+    ``<node path>/<leaf>/…`` (utils/trees.py tree_path_name)."""
+    parts = key[len("layers."):].split(".")
+    return "/".join([parts[0].replace("/", "."), *parts[1:]])
+
+
+@torch.no_grad()
+def _maxima(prefix: str, named) -> Dict[str, Tensor]:
+    return {f"{prefix}/{_tree_name(key)}": torch.max(torch.abs(t)) for key, t in named}
+
+
+def param_maxima(model: YoloModel, grads: Optional[Dict[str, Tensor]] = None
+                 ) -> Dict[str, Tensor]:
+    """Per-parameter |w|max (and |grad|max for ``grads``, parameter name →
+    gradient) scalars keyed as the reference keys them
+    (``weights_max/layer0/w``, ``grads_max/layer0/bn/scale``), so the
+    TensorBoard panels stay the same."""
+    out = _maxima("weights_max", model.named_parameters())
+    if grads is not None:
+        out.update(_maxima("grads_max", grads.items()))
+    return out
+
+
+def make_multi_step(
+    model: YoloModel,
+    optimizer: torch.optim.Optimizer,
+    config: TrainConfig,
+    k: int,
+    data_format: str = "NCHW",
+    accum: int = 1,
+) -> Callable:
+    """``k`` train steps: (TrainState, images[k,b,...], boxes[k,b,...],
+    classes[k,b,...], mask[k,b,...]) → (TrainState, metrics stacked [k]).
+
+    A Python loop over :func:`make_train_step`, so the semantics are those
+    of ``k`` sequential steps, the lr schedule included.
+    """
+    step = make_train_step(model, optimizer, config, data_format, accum)
+
+    def multi(ts: TrainState, images, gt_boxes, gt_classes, gt_mask):
+        per_step = []
+        for i in range(k):
+            ts, metrics = step(ts, images[i], gt_boxes[i], gt_classes[i], gt_mask[i])
+            per_step.append(metrics)
+        return ts, {key: torch.stack([m[key] for m in per_step]) for key in per_step[0]}
+
+    return multi
