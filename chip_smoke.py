@@ -29,9 +29,15 @@ result line:
    up to 3 M terms in another order), and against conv2d_weight in f32,
    ≤ 1e-3 · max|ref| (cuDNN may choose an algorithm that rounds more); y
    and dX must be identical to autograd of the same library conv calls.
-   Then per shape the kernels' median time beside their bound, the plain
-   version's and conv2d_weight's (bf16, channels-last), and at 304²,
-   32→64, k3 the same on f32 inputs.
+   Two launches of a kernel must give identical bits.  Then per shape the
+   kernels' median time beside their bound, the plain version's and
+   conv2d_weight's (bf16, channels-last), the plan of each launch (how often
+   xp and g are read from device memory, 1 = once; shared bytes; chunks),
+   the chunk reduction's share of a launch's device time (profiler), and
+   at 304², 32→64, k3 the same on f32 inputs.  Last, ragged shapes the
+   flagship lacks (odd widths, 3, 40 and 130 input channels, 20, 24 and 72
+   output channels, k 1, 3 and 5), bf16 and f32, against the plain version
+   within the same 1e-4, again with identical bits from two launches.
 5. train  — first one f32 SGD step of yolov4-csp at 64², batch 2, on the
    card and on the CPU from the same weights and batch: losses within
    rel 1e-4, every updated parameter within 25 % of its tensor's largest
@@ -81,6 +87,11 @@ BF16_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
 WGRAD_SHAPES = [(608, 3, 32, 3), (304, 64, 32, 1), (304, 32, 64, 3), (152, 128, 64, 1),
                 (152, 64, 64, 1), (152, 64, 64, 3), (152, 128, 128, 1), (76, 256, 128, 1)]
 WGRAD_REF_SHAPE = (304, 32, 64, 3)
+# ragged cases (B, H, W, Ci, Co, k): widths that are no multiple of the MMA
+# depth, channel counts that are no multiple of 8, a last chunk shorter than
+# the others, and the 25 taps of k = 5
+WGRAD_RAGGED = [(2, 37, 53, 3, 24, 3), (3, 19, 19, 40, 72, 1), (2, 8, 40, 130, 20, 1),
+                (2, 20, 20, 64, 64, 5), (1, 5, 5, 3, 3, 1)]
 WGRAD_TOL = 1e-4       # dW against the plain version: f32 sums in another order
 WGRAD_LIB_TOL = 1e-3   # against conv2d_weight, whose algorithm may round more (6e-5 seen)
 TRAIN_BATCH = 16        # bench.py:20; fits the card's 80 GB (PERF.md)
@@ -175,6 +186,31 @@ def phase_wgrad():
 
     from yolodl_torch.kernels import conv2d_db, conv2d_lowch, wgrad_db, wgrad_lowch
     from yolodl_torch.kernels import wgrad_lowch_reference as wgrad_reference
+    from yolodl_torch.kernels._util import wgrad_plan
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan_keys = ("reads_xp", "reads_g", "smem_bytes", "chunks", "blocks", "stages")
+    kinds = {"wgrad_lowch": "lowch", "wgrad_db": "db"}
+
+    def reduction_share(fn, xp, g, k):
+        """Device time of the chunk reduction over that of both kernels of a
+        launch (torch.profiler over 5 launches); None if it sees no kernel."""
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn(xp, g, k, device=DEVICE)
+            torch.cuda.synchronize()
+        times = {e.key: getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+                 if is_device_work(e) and "kernel" in e.key}
+        total = sum(times.values())
+        reduce_us = sum(v for key, v in times.items() if "reduce_slices" in key)
+        return reduce_us / total if total else None
+
+    def same_bits(fn, xp, g, k, first):
+        """A second launch on the same operands gives the first one's bits."""
+        if not torch.equal(first, fn(xp, g, k, device=DEVICE)):
+            raise AssertionError(f"{fn.__name__} {tuple(g.shape)} k={k}: two launches differ")
 
     kernels = {"wgrad_lowch": (wgrad_lowch, conv2d_lowch),
                "wgrad_db": (wgrad_db, conv2d_db)}
@@ -229,9 +265,13 @@ def phase_wgrad():
             if not (err_plain <= WGRAD_TOL and err_lib <= WGRAD_LIB_TOL):
                 raise AssertionError(f"{name} {row['shape']}: dW rel err {err_plain} (plain), "
                                      f"{err_lib} (conv2d_weight)")
+            same_bits(fn, xp, g, k, dw)
+            plan = wgrad_plan(kinds[name], b, h, h, ci, co, k, torch.bfloat16, sms)
+            row[f"{name}_plan"] = {key: plan[key] for key in plan_keys}
             row[f"{name}_rel_err"] = err_plain
             row[f"{name}_lib_rel_err"] = err_lib
             row[f"{name}_ms"] = median_ms(lambda fn=fn: fn(xp, g, k, device=DEVICE), n=50)
+            row[f"{name}_reduction_share"] = reduction_share(fn, xp, g, k)
             if (h, ci, co, k) == WGRAD_REF_SHAPE:
                 ref_entry[name] = {"max_abs_err": float((dw - plain).abs().max())}
         row["plain_ms"] = median_ms(lambda: wgrad_reference(xp, g, k), n=10)
@@ -250,9 +290,11 @@ def phase_wgrad():
             plain32 = wgrad_reference(x32, g32, k)
             row32 = {"shape": [b, h, ci, co, k], "dtype": "float32"}
             for name, (fn, _) in kernels.items():
-                err = rel_err(fn(x32, g32, k, device=DEVICE), plain32)
+                dw32 = fn(x32, g32, k, device=DEVICE)
+                err = rel_err(dw32, plain32)
                 if not err <= WGRAD_TOL:
                     raise AssertionError(f"{name} f32: dW rel err {err} > {WGRAD_TOL}")
+                same_bits(fn, x32, g32, k, dw32)
                 row32[f"{name}_rel_err"] = err
                 row32[f"{name}_ms"] = median_ms(lambda fn=fn: fn(x32, g32, k, device=DEVICE), n=50)
             row32["plain_ms"] = median_ms(lambda: wgrad_reference(x32, g32, k), n=10)
@@ -262,6 +304,22 @@ def phase_wgrad():
             row32["bound_ms"], row32["bound_by"] = wgrad_bound(b, h, ci, co, k, 4)
             emit({"phase": "wgrad", **row32})
     del cases, results
+
+    # ragged shapes, after the path's launches were counted
+    for rb, rh, rw, ci, co, k in WGRAD_RAGGED:
+        for dtype in (torch.bfloat16, torch.float32):
+            xp = torch.randn((rb, rh + k - 1, rw + k - 1, ci), generator=gen).to(dtype).to(DEVICE)
+            g = torch.randn((rb, rh, rw, co), generator=gen).to(dtype).to(DEVICE)
+            plain = wgrad_reference(xp, g, k)
+            row = {"ragged": [rb, rh, rw, ci, co, k], "dtype": str(dtype).split(".")[1]}
+            for name, (fn, _) in kernels.items():
+                dw = fn(xp, g, k, device=DEVICE)
+                err = rel_err(dw, plain)
+                if not err <= WGRAD_TOL:
+                    raise AssertionError(f"{name} {row}: dW rel err {err} > {WGRAD_TOL}")
+                same_bits(fn, xp, g, k, dw)
+                row[f"{name}_rel_err"] = err
+            emit({"phase": "wgrad", **row})
     torch.cuda.empty_cache()
     return launches, ref_entry
 

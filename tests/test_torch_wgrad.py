@@ -16,6 +16,7 @@ CUDA kernels themselves are checked against the plain version on the card
 """
 
 import importlib
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -128,13 +129,33 @@ def test_wrapper_rejects_bad_operands(which):
         conv(torch.zeros((1, 4, 4, 3)), torch.zeros((3, 3, 2, 5)), 3)
 
 
-def test_sources_are_registered_for_the_build():
+def test_sources_are_registered_for_the_build(tmp_path, monkeypatch):
     for name in ("wgrad_lowch", "wgrad_db"):
         src = _build.CSRC / _build.SOURCES[name]
         assert src.is_file()
         text = src.read_text()
         assert "extern \"C\"" in text and "cudaGetLastError" in text
+        assert "mma_bf16" in text and '#include "wgrad_common.cuh"' in text
         assert _build.library_path(name).parent == _build.BUILD_DIR
+    header = _build.CSRC / "wgrad_common.cuh"
+    assert header in _build.headers() and "mma.sync" in header.read_text()
+    assert str(_build.CSRC) in _build.NVCC_FLAGS  # -I csrc
+
+    # a library is named by its source and by every header it may include:
+    # touching a header changes the name, so no stale library is loaded
+    copy = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, copy)
+    monkeypatch.setattr(_build, "CSRC", copy)
+    before = {n: _build.library_path(n) for n in _build.SOURCES}
+    assert before == {n: _build.library_path(n) for n in _build.SOURCES}
+    with open(copy / "wgrad_common.cuh", "a") as f:
+        f.write("// touched\n")
+    after = {n: _build.library_path(n) for n in _build.SOURCES}
+    assert all(after[n] != before[n] for n in _build.SOURCES)
+    with open(copy / "iou.cu", "a") as f:
+        f.write("// touched\n")
+    assert _build.library_path("iou") != after["iou"]
+    assert _build.library_path("wgrad_db") == after["wgrad_db"]
 
 
 @pytest.mark.cuda
@@ -144,7 +165,10 @@ def test_kernel_matches_plain_version_on_card(which, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
     module, wrapper, _ = MODULES[which]
-    for shape in [(2, 9, 33, 3, 32, 3), (2, 8, 40, 130, 20, 1), (1, 5, 5, 3, 3, 1)]:
+    for shape in [(2, 9, 33, 3, 32, 3), (2, 8, 40, 130, 20, 1), (1, 5, 5, 3, 3, 1),
+                  # ragged: odd widths, channels that are no multiple of 8, k = 5
+                  (2, 37, 53, 3, 24, 3), (3, 19, 19, 40, 72, 1), (2, 20, 20, 64, 64, 5),
+                  (2, 24, 40, 32, 64, 3)]:
         b, h, w, ci, co, k = shape
         gen = torch.Generator().manual_seed(0)
         xp = torch.randn((b, h + k - 1, w + k - 1, ci), generator=gen).to(dtype).cuda()
@@ -156,4 +180,5 @@ def test_kernel_matches_plain_version_on_card(which, dtype):
         ref = getattr(module, f"wgrad_{which}_reference")(xp, g, k)
         scale = float(ref.abs().max())
         assert float((out - ref).abs().max()) <= 1e-5 * scale, shape
-        assert torch.equal(out, wrapper(xp, g, k))  # deterministic
+        again = wrapper(xp, g, k)  # two launches give the same bits
+        assert wrapper.launches == before + 2 and torch.equal(out, again), shape

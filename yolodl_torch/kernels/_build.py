@@ -4,8 +4,9 @@ Each source under ``yolodl_torch/csrc/`` is compiled by ``nvcc`` into its own
 shared library with a plain C interface, loaded with ``ctypes``.  Nothing
 includes PyTorch's headers, so a build takes seconds.  Libraries go to
 ``build/yolodl_torch/`` at the repository root, named by a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is.  A failed build raises; nothing falls back.
+source, of every header under ``csrc/`` (a source may include any of them)
+and of the flags, so an edited source or header is rebuilt and an unchanged
+one is loaded as it is.  A failed build raises; nothing falls back.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` so that nvcc never
 contracts a product and a sum into one FMA — the kernels round every
@@ -38,7 +39,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
+    "-I", str(CSRC),
 )
+LINK_FLAGS = ("-ldl",)   # wgrad_common.cuh finds libcuda's tensor-map encoder with dlsym
+HEADER_GLOBS = ("*.cuh", "*.h")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -59,9 +63,18 @@ def _nvcc() -> str:
     return found
 
 
+def headers() -> list:
+    """Every header under csrc/ that a source can include, in a fixed order."""
+    return sorted(h for pattern in HEADER_GLOBS for h in CSRC.glob(pattern))
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256()
+    for path in [CSRC / SOURCES[name], *headers()]:
+        digest.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    # the include path is where the checkout lies, not what is compiled
+    flags = [f for f in (*NVCC_FLAGS, *LINK_FLAGS) if f != str(CSRC)]
+    digest.update(" ".join(flags).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
@@ -73,7 +86,7 @@ def _start_build(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = final.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name]), *LINK_FLAGS]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return proc, tmp, final

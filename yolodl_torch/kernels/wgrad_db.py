@@ -1,11 +1,13 @@
-"""Double-buffered conv weight gradient: the hand-written CUDA kernel and its
-plain version.
+"""Conv weight gradient staged through an asynchronous ring: the hand-written
+CUDA kernel and its plain version.
 
 Counterpart of ``yolodl_tpu/kernels/wgrad_db.py`` (``wgrad_db``,
 ``conv2d_db``).  The kernel is ``yolodl_torch/csrc/wgrad_db.cu``: the same
-function as ``wgrad_lowch``, with the halo copied by ``cp.async`` into a
-double buffer and one accumulator per tap.  The reference's padding of ci
-to 128 and of W to 8 served the TPU's tiling only and is not carried over.
+function as ``wgrad_lowch``; for bf16 the row strips of xp and g are copied
+by TMA into a ring of shared-memory stages while tensor-core MMAs work on
+the rows that have arrived, one accumulator per tap (f32 inputs keep the
+``cp.async`` double buffer and f32 FMA).  The reference's padding of ci to
+128 and of W to 8 served the TPU's tiling only and is not carried over.
 
 :func:`wgrad_db` takes the kernel for CUDA tensors and the plain version
 :func:`wgrad_db_reference` for CPU tensors; on CUDA tensors it launches or
@@ -31,7 +33,8 @@ def wgrad_db_reference(xp: Tensor, g: Tensor, k: int) -> Tensor:
 
 
 def wgrad_db(xp: Tensor, g: Tensor, k: int, device="cuda") -> Tensor:
-    """dW of a stride-1 "same" conv from pre-padded input, double-buffered.
+    """dW of a stride-1 "same" conv from pre-padded input, copies overlapped
+    with the products.
 
     xp: ``[B, H+k−1, W+k−1, Ci]``, g: ``[B, H, W, Co]``, both float32 or
     both bfloat16, contiguous, on ``device`` → ``[k, k, Ci, Co]`` f32.
@@ -43,7 +46,7 @@ def wgrad_db(xp: Tensor, g: Tensor, k: int, device="cuda") -> Tensor:
         raise ValueError(f"wgrad_db: the kernel takes k in {KERNEL_SIZES}, got {k}")
     from . import _build
 
-    out = launch_wgrad(_build.load("wgrad_db"), "yolodl_wgrad_db", xp, g, k)
+    out = launch_wgrad(_build.load("wgrad_db"), "db", xp, g, k)
     wgrad_db.launches += 1
     return out
 
@@ -52,5 +55,4 @@ wgrad_db.launches = 0
 
 conv2d_db = make_conv2d_with_wgrad(
     wgrad_db,
-    "Dense stride-1 'same' NHWC conv whose dW comes from the double-buffered "
-    "wgrad_db kernel.")
+    "Dense stride-1 'same' NHWC conv whose dW comes from the wgrad_db kernel.")

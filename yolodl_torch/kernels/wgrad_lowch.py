@@ -2,8 +2,10 @@
 and its plain version.
 
 Counterpart of ``yolodl_tpu/kernels/wgrad_pallas.py`` (``wgrad_lowch``,
-``conv2d_lowch``).  The kernel is ``yolodl_torch/csrc/wgrad_lowch.cu``; its
-source note says what bounds it and how the design answers that.
+``conv2d_lowch``).  The kernel is ``yolodl_torch/csrc/wgrad_lowch.cu``: all
+k² taps packed into one contraction operand, formed in shared memory, and
+multiplied on the tensor cores (bf16; f32 inputs keep f32 FMA).  Its source
+note says what bounds it and how the design answers that.
 
 :func:`wgrad_lowch` takes the kernel for CUDA tensors and the plain version
 :func:`wgrad_lowch_reference` for CPU tensors.  On CUDA tensors it launches
@@ -40,7 +42,7 @@ def wgrad_lowch(xp: Tensor, g: Tensor, k: int, device="cuda") -> Tensor:
         raise ValueError(f"wgrad_lowch: the kernel takes k <= 7, got {k}")
     from . import _build
 
-    out = launch_wgrad(_build.load("wgrad_lowch"), "yolodl_wgrad_lowch", xp, g, k)
+    out = launch_wgrad(_build.load("wgrad_lowch"), "lowch", xp, g, k)
     wgrad_lowch.launches += 1
     return out
 
