@@ -8,19 +8,33 @@ result line:
 
 1. build  — compile every CUDA kernel of yolodl_torch/csrc with nvcc (one
    process per source, started together) into build/yolodl_torch/.
-2. kernel — the IoU kernel against its plain PyTorch version on the card at
-   [8,512,4] (the serving shape), [1,300,4] and [2,8,4] plus zero-area
-   boxes: max|Δ| ≤ 1e-6 and a diagonal of 1; then the kernel's median time
-   over 200 launches (CUDA events, queued behind a sleep so that host
+2. kernel — B1's kernels against their plain PyTorch versions on the card.
+   nms_conflict_bits must give the plain version's bits exactly
+   (torch.equal) for f32 and bf16 boxes, greedy and diou (β 0.6), one group
+   and 80, K in 1, 8, 300, 512, 1000, 1500 (a ragged last word; shared
+   memory above 48 KB; rows read from device memory), on boxes that include
+   zero-area ones and exact duplicates; nms_keep_from_bits the plain keep
+   mask on those bits and on a 512-box chain in which each box overlaps
+   only its neighbour; two launches of each the same bits.  pairwise_iou f32
+   must equal its plain version at [8,512,4], [1,300,4], [2,8,4] and
+   [3,510,4] (scalar stores) with a diagonal of 1.  The library's powf is
+   held against torch.pow (the DIoU penalty's power).  Then, at [8,512]
+   with diou β 0.6 on bf16 boxes (the serving case), each kernel's median
+   time over 200 launches (CUDA events, queued behind a sleep so that host
    launch overhead is not timed) beside its bound and the plain version's.
 3. serve  — YoloModel on cfg/darknet/yolov4-csp.cfg at 608x608 with seeded
    random weights, DetectionService(batch 8, bf16, NMS kind from the cfg)
    answering 32 requests from 8 threads and the HTTP endpoints.  The
-   launch counter is zeroed right before and read right after: the IoU
-   kernel must have launched once per served batch.  One batch is
-   post-processed again with the plain IoU version: keep masks, classes
-   and instances must be identical.  The f32 forward on the card is held
-   against the same model on the CPU at 64x64.
+   launch counters are zeroed right before and read right after: the
+   conflict and the resolution kernel must each have launched once per
+   served batch.  One batch is post-processed again on the plain route (no
+   kernel may launch) and on the dense route (the pairwise_iou kernel's
+   [B,K,K] matrix, eager DIoU, a Jacobi fixed point read on the host): keep masks, classes and
+   instances must be identical.  The breakdown line gives both routes' ms,
+   kernels and host syncs (the profiler's aten::equal count, which must be
+   0 on the kernel route), and the two kernels' times on the served
+   batch's own candidates.  The f32 forward on the card is held against
+   the same model on the CPU at 64x64.
 4. wgrad  — conv2d_lowch and conv2d_db (yolodl_torch.kernels), forward and
    backward at each stride-1 low-channel conv shape of yolov4-csp at 608²,
    batch 8, bf16, with both launch counters zeroed right before and read
@@ -78,6 +92,9 @@ CFG = os.path.join(REPO, "cfg", "darknet", "yolov4-csp.cfg")
 IMAGE_SIZE = 608
 BATCH = 8
 MAX_DETS = 512          # non_max_suppression's default
+NMS_IOU = 0.45          # DetectionService's threshold
+NMS_BETA = 0.6          # yolov4-csp.cfg beta_nms
+NMS_KS = (1, 8, 300, MAX_DETS, 1000, 1500)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_FLOPS = 67e12           # H100 SXM f32, outside the tensor cores
 BF16_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
@@ -127,40 +144,156 @@ def random_tlbr(gen, b, k):
 
 
 def iou_bound(b, k):
-    """(bound_ms, bound_by): each input byte read once, each output byte
-    written once; 13 f32 operations per pair and 6 per box."""
+    """(bound_ms, bound_by) of pairwise_iou: each input byte read once,
+    each output byte written once; 13 f32 operations per pair and 6 per
+    box."""
     t_bytes = (b * k * 4 * 4 + b * k * k * 4) / HBM_BYTES_PER_S
     t_ops = (13 * b * k * k + 6 * b * k) / F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def conflict_bound(iou, tlbr, group, thr, kind):
+    """(bound_ms, bound_by) of nms_conflict_bits on these inputs: boxes and
+    int64 groups read once, the [B, K, ceil(K/32)] words written once,
+    against the f32 operations of the formula, each counted once, that this
+    data needs over the pairs j < i of one group: the intersection (4
+    min/max, 2 differences, 2 clamps, a product: 9) of every pair; the rest
+    of the IoU and the comparison (3 for the union, the division, the
+    comparison: 5) where the boxes intersect; and for diou the penalty (2
+    differences, 2 squares and a sum for the distance; 4 min/max, 2
+    differences, 2 squares and 2 sums for the diagonal; the division, the
+    power counted as 1, the subtraction: 18) where the IoU passes the
+    threshold.  Per box: the area (3) and for diou the centres (4)."""
+    b, k, _ = tlbr.shape
+    score = iou.pairwise_iou_reference(tlbr)
+    pairs = (group[:, :, None] == group[:, None, :]) & torch.ones(
+        (k, k), dtype=torch.bool, device=tlbr.device).triu(1)
+    ops = 9 * int(pairs.sum()) + 5 * int((pairs & (score > 0)).sum()) + 3 * b * k
+    if kind == "diou":
+        ops += 18 * int((pairs & (score > thr)).sum()) + 4 * b * k
+    words = (k + 31) // 32
+    t_bytes = (b * k * (4 * tlbr.element_size() + 8) + b * k * words * 4) / HBM_BYTES_PER_S
+    t_ops = ops / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def keep_bound(b, k):
+    """(bound_ms, "bytes") of nms_keep_from_bits: the words and the valid
+    flags read once, the keep flags written once.  Its serial chain of K
+    dependent decisions per image is in no roofline."""
+    return (b * k * ((k + 31) // 32) * 4 + 2 * b * k) / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def nms_inputs(gen, b, k, dtype, groups):
+    """Boxes (with zero-area boxes and exact duplicates), groups and a valid
+    mask for B1's kernels, on the card."""
+    tlbr = random_tlbr(gen, b, k)
+    tlbr[:, : min(3, k), 2:] = tlbr[:, : min(3, k), :2]  # zero area
+    if k >= 8:
+        tlbr[:, 5] = tlbr[:, 4]  # exact duplicates, of a box and of a zero-area one
+        tlbr[:, 7] = tlbr[:, 1]
+    group = torch.randint(0, groups, (b, k), generator=gen)
+    valid = torch.rand((b, k), generator=gen) < 0.9
+    return tlbr.to(dtype).cuda(), group.cuda(), valid.cuda()
+
+
+def chain_tlbr(k):
+    """K boxes along x, each overlapping only its neighbours (IoU 1/3):
+    greedy NMS at 0.3 keeps every other box."""
+    t = torch.arange(k, dtype=torch.float32) * 0.5
+    z = torch.zeros(k)
+    return torch.stack([z, t, z + 1.0, t + 1.0], -1)[None]
+
+
 def phase_kernel(iou):
+    """B1's kernels against their plain versions, then their times at
+    [8,512]; see the module docstring.  Returns the kernels-line entries."""
     gen = torch.Generator().manual_seed(0)
+    cases = conflicts = kept = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for kind in ("greedy", "diou"):
+            for groups in (1, 80):
+                for k in NMS_KS:
+                    b = BATCH if k == MAX_DETS else 2
+                    tlbr, group, valid = nms_inputs(gen, b, k, dtype, groups)
+                    case = f"[{b},{k}] {str(dtype)[6:]} {kind} groups={groups}"
+                    bits = iou.nms_conflict_bits(tlbr, group, NMS_IOU, kind, NMS_BETA)
+                    ref = iou.nms_conflict_bits_reference(tlbr, group, NMS_IOU, kind, NMS_BETA)
+                    if not torch.equal(bits, ref):
+                        diff = int((iou.unpack_bits(bits, k) != iou.unpack_bits(ref, k)).sum())
+                        raise AssertionError(f"nms_conflict_bits {case}: {diff} bits differ")
+                    keep = iou.nms_keep_from_bits(bits, valid)
+                    if not torch.equal(keep, iou.nms_keep_from_bits_reference(bits, valid)):
+                        raise AssertionError(f"nms_keep_from_bits {case}: keep masks differ")
+                    if not (torch.equal(bits, iou.nms_conflict_bits(tlbr, group, NMS_IOU, kind,
+                                                                    NMS_BETA))
+                            and torch.equal(keep, iou.nms_keep_from_bits(bits, valid))):
+                        raise AssertionError(f"{case}: two launches differ")
+                    cases += 1
+                    conflicts += int(iou.unpack_bits(bits, k).sum())
+                    kept += int(keep.sum())
+    chain = chain_tlbr(MAX_DETS).cuda()
+    ones = torch.ones((1, MAX_DETS), dtype=torch.bool, device="cuda")
+    zeros = torch.zeros((1, MAX_DETS), dtype=torch.long, device="cuda")
+    chain_bits = iou.nms_conflict_bits(chain, zeros, 0.3)
+    chain_keep = iou.nms_keep_from_bits(chain_bits, ones)
+    expect = (torch.arange(MAX_DETS, device="cuda") % 2 == 0)[None]
+    if not (torch.equal(chain_bits, iou.nms_conflict_bits_reference(chain, zeros, 0.3))
+            and torch.equal(chain_keep, iou.nms_keep_from_bits_reference(chain_bits, ones))
+            and torch.equal(chain_keep, expect)):
+        raise AssertionError("the 512-box chain: keep is not every other box")
+
     max_err = 0.0
-    for b, k in [(8, MAX_DETS), (1, 300), (2, 8)]:
+    for b, k in [(BATCH, MAX_DETS), (1, 300), (2, 8), (3, 510)]:
         tlbr = random_tlbr(gen, b, k)
         tlbr[:, : min(3, k), 2:] = tlbr[:, : min(3, k), :2]  # zero-area boxes
         tlbr = tlbr.cuda()
         out = iou.pairwise_iou(tlbr)
-        torch.cuda.synchronize()
         ref = iou.pairwise_iou_reference(tlbr)
-        err = float((out - ref).abs().max())
-        if not err <= 1e-6:
-            raise AssertionError(f"iou kernel [{b},{k}]: max|d|={err} > 1e-6")
+        if not torch.equal(out, ref):
+            raise AssertionError(f"pairwise_iou [{b},{k}]: max|d|={float((out - ref).abs().max())}")
         diag = torch.diagonal(out, dim1=1, dim2=2)[:, min(3, k):]
         if not torch.allclose(diag, torch.ones_like(diag), atol=1e-6):
-            raise AssertionError(f"iou kernel [{b},{k}]: diagonal is not 1")
-        max_err = max(max_err, err)
+            raise AssertionError(f"pairwise_iou [{b},{k}]: diagonal is not 1")
+        max_err = max(max_err, float((out - ref).abs().max()))
 
-    tlbr = random_tlbr(gen, BATCH, MAX_DETS).cuda()
-    kernel_ms = median_ms(lambda: iou.pairwise_iou(tlbr))
-    plain_ms = median_ms(lambda: iou.pairwise_iou_reference(tlbr))
-    bound_ms, bound_by = iou_bound(BATCH, MAX_DETS)
-    result = {"phase": "kernel", "name": "pairwise_iou", "shape": [BATCH, MAX_DETS, 4],
-              "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
-              "bound_ms": bound_ms, "bound_by": bound_by}
-    emit(result)
-    return result
+    # the library's powf against torch.pow, at the exponent of each dtype
+    x = torch.rand(1 << 20, generator=gen).cuda()
+    powf = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        e = float(torch.tensor(NMS_BETA, dtype=dtype))
+        y = torch.empty_like(x)
+        if iou.entry("yolodl_powf_probe")(x.data_ptr(), y.data_ptr(), x.numel(), e,
+                                           torch.cuda.current_stream().cuda_stream):
+            raise AssertionError("powf probe launch failed")
+        ref = torch.pow(x, x.new_full((), e))
+        powf[str(e)] = {"identical": torch.equal(y, ref), "max_abs_diff": float((y - ref).abs().max())}
+
+    # times at the serving shape: bf16 boxes, one group, diou
+    tlbr, group, valid = nms_inputs(gen, BATCH, MAX_DETS, torch.bfloat16, 1)
+    group.zero_()
+    bits = iou.nms_conflict_bits(tlbr, group, NMS_IOU, "diou", NMS_BETA)
+    tlbr32 = tlbr.float()
+    entries = {}
+    for name, fn, plain, bound, err in (
+            ("nms_conflict_bits",
+             lambda: iou.nms_conflict_bits(tlbr, group, NMS_IOU, "diou", NMS_BETA),
+             lambda: iou.nms_conflict_bits_reference(tlbr, group, NMS_IOU, "diou", NMS_BETA),
+             conflict_bound(iou, tlbr, group, NMS_IOU, "diou"), 0.0),
+            ("nms_keep_from_bits", lambda: iou.nms_keep_from_bits(bits, valid),
+             lambda: iou.nms_keep_from_bits_reference(bits, valid),
+             keep_bound(BATCH, MAX_DETS), 0.0),
+            ("pairwise_iou", lambda: iou.pairwise_iou(tlbr32),
+             lambda: iou.pairwise_iou_reference(tlbr32), iou_bound(BATCH, MAX_DETS),
+             max_err)):
+        entries[name] = {"ms": median_ms(fn), "plain_ms": median_ms(plain),
+                         "bound_ms": bound[0], "bound_by": bound[1], "max_abs_err": err}
+    emit({"phase": "kernel", "nms_cases": cases, "nms_conflicting_pairs": conflicts,
+          "nms_kept": kept, "chain_kept": int(chain_keep.sum()), "powf": powf,
+          "timed_shape": [BATCH, MAX_DETS, 4], "timed_dtype": "bfloat16", "timed_kind": "diou",
+          "timed_kept": int(iou.nms_keep_from_bits(bits, valid).sum()), **{
+              f"{name}_{key}": v for name, e in entries.items() for key, v in e.items()}})
+    return entries
 
 
 def wgrad_bound(b, h, ci, co, k, itemsize):
@@ -531,19 +664,23 @@ def phase_train():
     torch.cuda.empty_cache()
 
 
-def profile_batch(svc, stacked, pred) -> dict:
-    """torch.profiler over one forward and one postprocess: CUDA kernels
-    launched by the postprocess, host syncs of its fixed-point loop
-    (aten::equal), and the forward's costliest kernels by device time."""
+def profile_postprocess(svc, pred) -> dict:
+    """torch.profiler over one postprocess: work on the card (kernels,
+    copies, memsets) and host syncs of a fixed-point loop (aten::equal)."""
     from torch.profiler import ProfilerActivity, profile
 
-    out = {}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         svc.postprocess(pred)
         torch.cuda.synchronize()
     events = prof.events()
-    out["postprocess_kernels"] = sum(1 for e in events if e.device_type.name == "CUDA")
-    out["postprocess_convergence_checks"] = sum(1 for e in events if e.name == "aten::equal")
+    return {"kernels": sum(1 for e in events if is_device_work(e)),
+            "convergence_checks": sum(1 for e in events if e.name == "aten::equal")}
+
+
+def profile_forward(svc, stacked) -> dict:
+    """torch.profiler over one forward: kernels, device ms, the costliest."""
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         svc.forward(stacked)
         torch.cuda.synchronize()
@@ -555,10 +692,25 @@ def profile_batch(svc, stacked, pred) -> dict:
         return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
 
     kernels.sort(key=dev_us, reverse=True)
-    out["forward_kernels"] = sum(e.count for e in kernels)
-    out["forward_device_ms"] = sum(dev_us(e) for e in kernels) / 1e3
-    out["forward_top"] = [[e.key[:60], e.count, dev_us(e) / 1e3] for e in kernels[:6]]
-    return out
+    return {"forward_kernels": sum(e.count for e in kernels),
+            "forward_device_ms": sum(dev_us(e) for e in kernels) / 1e3,
+            "forward_top": [[e.key[:60], e.count, dev_us(e) / 1e3] for e in kernels[:6]]}
+
+
+class swapped:
+    """Replaces attributes of a module for the duration of a with-block."""
+
+    def __init__(self, module, **attrs):
+        self.module, self.attrs = module, attrs
+
+    def __enter__(self):
+        self.saved = {k: getattr(self.module, k) for k in self.attrs}
+        for k, v in self.attrs.items():
+            setattr(self.module, k, v)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            setattr(self.module, k, v)
 
 
 def phase_serve(iou):
@@ -608,20 +760,56 @@ def phase_serve(iou):
                      for f in ("cycxhw", "obj_logit", "class_logit"))
         if not finite or pred.cycxhw.shape != (BATCH, 22743, 4):
             raise AssertionError(f"bad forward output {tuple(pred.cycxhw.shape)}")
-        # one batch post-processed with the kernel and with the plain version
+        # one batch post-processed on three routes: the two kernels; their
+        # plain versions; the dense route (IoU matrix from the pairwise_iou
+        # kernel, eager DIoU, Jacobi fixed point read on the host)
+        plain = swapped(nms_mod,
+                        nms_conflict_bits=lambda *a, device: iou.nms_conflict_bits_reference(*a),
+                        nms_keep_from_bits=lambda *a, device: iou.nms_keep_from_bits_reference(*a))
+        dense = swapped(nms_mod, _suppress=lambda tlbr, group, valid, thr, kind, beta:
+                         iou.keep_from_conflict(iou.conflict_matrix(
+                             tlbr, group, thr, kind, beta, iou=iou.pairwise_iou(tlbr)), valid))
+        kernels = (iou.nms_conflict_bits, iou.nms_keep_from_bits)
         with_kernel = svc.postprocess(pred)
-        launches_before = iou.pairwise_iou.launches
-        nms_mod.pairwise_iou = lambda t, device: iou.pairwise_iou_reference(t)
-        try:
+        before = [fn.launches for fn in kernels]
+        with plain:
             with_plain = svc.postprocess(pred)
-        finally:
-            nms_mod.pairwise_iou = iou.pairwise_iou
-        if iou.pairwise_iou.launches != launches_before:
-            raise AssertionError("the plain postprocess launched the kernel")
+        if [fn.launches for fn in kernels] != before:
+            raise AssertionError("the plain postprocess launched a kernel")
+        iou.pairwise_iou.launches = 0
+        with dense:
+            with_dense = svc.postprocess(pred)
+        dense_iou_launches = iou.pairwise_iou.launches
+        if [fn.launches for fn in kernels] != before or dense_iou_launches != 1:
+            raise AssertionError("the dense postprocess: wrong launches")
         for f in ("valid", "classes", "instances"):
-            if not torch.equal(getattr(with_kernel, f), getattr(with_plain, f)):
-                raise AssertionError(f"postprocess {f}: kernel and plain IoU disagree")
+            for route, other in (("plain", with_plain), ("dense", with_dense)):
+                if not torch.equal(getattr(with_kernel, f), getattr(other, f)):
+                    raise AssertionError(f"postprocess {f}: kernel and {route} route disagree")
         kept = int(with_kernel.valid.sum())
+        post = profile_postprocess(svc, pred)
+        with dense:
+            dense_ms = median_ms(lambda: svc.postprocess(pred), n=20)
+            dense_post = profile_postprocess(svc, pred)
+        if post["convergence_checks"] != 0:
+            raise AssertionError(f"the postprocess synced {post['convergence_checks']} times")
+        # the two kernels on the served batch's own candidates
+        captured = []
+        real_suppress = nms_mod._suppress
+
+        def capture(*args):
+            captured.append(args)
+            return real_suppress(*args)
+
+        with swapped(nms_mod, _suppress=capture):
+            svc.postprocess(pred)
+        tlbr, group, valid, thr, kind, beta = captured[0]
+        bits = iou.nms_conflict_bits(tlbr, group, thr, kind, beta)
+        served = {"served_conflict_ms": median_ms(
+                      lambda: iou.nms_conflict_bits(tlbr, group, thr, kind, beta)),
+                  "served_keep_ms": median_ms(lambda: iou.nms_keep_from_bits(bits, valid)),
+                  "served_candidates": int(valid.sum()),
+                  "served_kept": int(iou.nms_keep_from_bits(bits, valid).sum())}
         # host side of one batch: unpack + map to original pixels, as the
         # completer thread does it
         t0 = time.perf_counter()
@@ -630,16 +818,20 @@ def phase_serve(iou):
             svc._to_original_pixels(d, (IMAGE_SIZE, IMAGE_SIZE))
         host_unpack_ms = (time.perf_counter() - t0) * 1e3
         try:  # auxiliary: a profiler that sees no device time is not a failure
-            profiled = profile_batch(svc, stacked, pred)
+            profiled = profile_forward(svc, stacked)
         except Exception as e:
             profiled = {"profile": f"not measured: {type(e).__name__}: {e}"}
     emit({"phase": "breakdown", "forward_ms": fwd_ms, "postprocess_ms": post_ms,
-          "batch": BATCH, "kept_detections": kept, "host_unpack_ms": host_unpack_ms,
-          "model_build_s": build_s,
-          "warmup_s": warm_s, **profiled})
+          "postprocess_kernels": post["kernels"],
+          "postprocess_convergence_checks": post["convergence_checks"],
+          "dense_postprocess_ms": dense_ms, "dense_postprocess_kernels": dense_post["kernels"],
+          "dense_postprocess_convergence_checks": dense_post["convergence_checks"],
+          **served, "batch": BATCH, "kept_detections": kept, "host_unpack_ms": host_unpack_ms,
+          "model_build_s": build_s, "warmup_s": warm_s, **profiled})
 
     # the serving run: counters zeroed right before, read right after
-    iou.pairwise_iou.launches = 0
+    for fn in kernels:
+        fn.launches = 0
     svc.start()
     server = make_http_server(svc, port=0)
     http = threading.Thread(target=server.serve_forever, daemon=True)
@@ -686,7 +878,7 @@ def phase_serve(iou):
         server.shutdown()
         server.server_close()
         svc.shutdown()
-    launches = iou.pairwise_iou.launches
+    launches = {fn.__name__: fn.launches for fn in kernels}
 
     if errors or any(r is None for r in results):
         raise AssertionError(f"requests failed: {errors[:3]}")
@@ -699,8 +891,8 @@ def phase_serve(iou):
                 raise AssertionError(f"malformed detection {d}")
     if stats["errors"] != 0:
         raise AssertionError(f"service errors: {stats}")
-    if launches != stats["batches"] or launches == 0:
-        raise AssertionError(f"iou launches {launches} != served batches {stats['batches']}")
+    if set(launches.values()) != {stats["batches"]} or stats["batches"] == 0:
+        raise AssertionError(f"launches {launches} != served batches {stats['batches']}")
     lat = snap_run.get("latency_ms", {})
     emit({"phase": "serve", "model": "yolov4-csp", "image_size": IMAGE_SIZE,
           "batch": BATCH, "dtype": "bfloat16", "nms_kind": nms_kind, "nms_beta": nms_beta,
@@ -708,10 +900,10 @@ def phase_serve(iou):
           "img_per_s": snap_run["images_done"] / wall,
           "latency_p50_ms": lat.get("p50"), "latency_p95_ms": lat.get("p95"),
           "mean_batch_fill": snap_run["mean_batch_fill"],
-          "batches": stats["batches"], "iou_launches": launches,
+          "batches": stats["batches"], **{f"{n}_launches": v for n, v in launches.items()},
           "detections": sum(len(r) for r in results), "errors": stats["errors"],
           "pil": True})
-    return launches
+    return {**launches, "pairwise_iou": dense_iou_launches}
 
 
 def main() -> int:
@@ -739,12 +931,22 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(card.splitlines()[0], flush=True)
+    # B1: the conflict tile (the Pallas IoU tile with NMS's conflict formula
+    # around it) and the resolution (an XLA scan, no Pallas kernel) launch on
+    # the serving path; pairwise_iou only on the breakdown's dense route
+    b1 = {"nms_conflict_bits": {"replaces": "yolodl_tpu/kernels/iou_pallas.py:32",
+                                "replaces_also": "yolodl_tpu/loss/nms.py:86-101"},
+          "nms_keep_from_bits": {"replaces": "yolodl_tpu/loss/nms.py:113-147",
+                                 "replaces_kind": "an XLA scan (fori_loop + while_loop), "
+                                                  "not a Pallas kernel"},
+          "pairwise_iou": {"replaces": "yolodl_tpu/kernels/iou_pallas.py:32",
+                           "launched_by": "the serve breakdown's dense postprocess route"}}
     emit({"kernels": [{
-        "name": "pairwise_iou", "route": "cuda", "source": "yolodl_torch/csrc/iou.cu",
-        "replaces": "yolodl_tpu/kernels/iou_pallas.py:32",
-        "launches": launches, "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"], "kernel_ms": k["ms"], "plain_ms": k["plain_ms"],
-        "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None}] + [{
+        "name": name, "route": "cuda", "source": "yolodl_torch/csrc/iou.cu", **extra,
+        "launches": launches[name], "max_abs_err": k[name]["max_abs_err"],
+        "ms": k[name]["ms"], "kernel_ms": k[name]["ms"], "plain_ms": k[name]["plain_ms"],
+        "bound_ms": k[name]["bound_ms"], "bound_by": k[name]["bound_by"], "library_ms": None}
+        for name, extra in b1.items()] + [{
         "name": name, "route": "cuda", "source": f"yolodl_torch/csrc/{name}.cu",
         "replaces": replaces, "launches": wgrad_launches[name],
         "max_abs_err": wgrad[name]["max_abs_err"], "ms": wgrad[name]["ms"],

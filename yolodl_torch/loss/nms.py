@@ -4,10 +4,11 @@ Counterpart of ``yolodl_tpu/loss/nms.py``, with the same outputs:
 
 1. candidates are pre-filtered to a static ``max_dets`` per image by a
    top-k on masked confidence;
-2. greedy suppression over the score-sorted candidates uses the full IoU
-   matrix, which comes from the hand-written CUDA kernel
-   (``kernels/iou.py``) for CUDA tensors and from its plain version for CPU
-   tensors — one launch for the whole batch;
+2. greedy suppression over the score-sorted candidates takes two
+   hand-written CUDA kernels (``kernels/iou.py``) for CUDA tensors, and
+   their plain versions for CPU tensors: one writes a bit per candidate
+   pair that conflicts, the other resolves the keep mask from those bits —
+   two launches for the whole batch, no host sync;
 3. the output is fixed-shape with a validity mask instead of ragged lists.
 
 Suppression is per group: same image (and same class when
@@ -27,16 +28,13 @@ import dataclasses
 import torch
 
 from ..geometry.boxes import cycxhw_to_tlbr
-from ..kernels.iou import pairwise_iou
+from ..kernels.iou import nms_conflict_bits, nms_keep_from_bits
 from ..ops.detect import MergedDetection
 
 Tensor = torch.Tensor
 
 DEFAULT_IOU_THRESHOLD = 0.6
 DEFAULT_CONFIDENCE_THRESHOLD = 0.1
-
-# fixed-point passes between two convergence checks in _suppress
-CHECK_EVERY = 4
 
 
 @dataclasses.dataclass
@@ -60,44 +58,15 @@ def _suppress(tlbr: Tensor, group: Tensor, valid: Tensor, iou_threshold: float,
 
     Greedy NMS is the unique solution of the triangular recurrence
         keep[i] = valid[i] ∧ ∀ j<i: ¬(keep[j] ∧ conflict[j,i]).
-    The reference marches over blocks of 64 candidates with a Jacobi
-    fixpoint inside each.  Here the Jacobi map runs over all K candidates
-    of every image at once — on the card a [B,K,K] pass is a few µs — and
-    the loop stops at the first verified fixed point.  A fixed point of the
-    map solves the recurrence, so it is the greedy answer exactly; after t
-    passes the first t candidates are final, so at most K passes are needed.
-    Convergence is read on the host once every ``CHECK_EVERY`` passes.
+    The IoU is f32 whatever the box dtype, as the reference's
+    backend="pallas" gives it (its default XLA backend computes in the box
+    dtype).  Two calls, two launches on the card: the conflict matrix
+    (threshold, group, rank mask) as one bit per pair, then the recurrence
+    resolved in rank order; nothing is read back to the host.  On the CPU
+    both take their plain versions (kernels/iou.py).
     """
-    if kind not in ("greedy", "diou"):
-        raise ValueError(f"unknown nms kind {kind!r}")
-    k = tlbr.shape[1]
-    # f32 whatever the box dtype, as the reference's backend="pallas" gives
-    # it (its default XLA backend computes in the box dtype)
-    iou = pairwise_iou(tlbr, device=tlbr.device)  # [B, K, K] f32
-    if kind == "diou":
-        cy = (tlbr[..., 0] + tlbr[..., 2]) / 2
-        cx = (tlbr[..., 1] + tlbr[..., 3]) / 2
-        dist = (cy[:, :, None] - cy[:, None, :]) ** 2 + (cx[:, :, None] - cx[:, None, :]) ** 2
-        enc_t = torch.minimum(tlbr[:, :, None, 0], tlbr[:, None, :, 0])
-        enc_l = torch.minimum(tlbr[:, :, None, 1], tlbr[:, None, :, 1])
-        enc_b = torch.maximum(tlbr[:, :, None, 2], tlbr[:, None, :, 2])
-        enc_r = torch.maximum(tlbr[:, :, None, 3], tlbr[:, None, :, 3])
-        diag = (enc_b - enc_t) ** 2 + (enc_r - enc_l) ** 2 + 1e-16
-        iou = iou - (dist / diag) ** beta
-    same_group = group[:, :, None] == group[:, None, :]
-    order = torch.arange(k, device=tlbr.device)
-    lower = order[:, None] < order[None, :]  # j strictly higher-ranked than i
-    # conflict[b, j, i]: candidate i conflicts with higher-scored candidate j
-    conflict = (iou > iou_threshold) & same_group & lower
-
-    keep = valid
-    for t in range(1, k + 1):
-        new = valid & ~(conflict & keep[:, :, None]).any(dim=1)
-        if t % CHECK_EVERY == 0 or t == k:
-            if torch.equal(new, keep):
-                break
-        keep = new
-    return keep
+    bits = nms_conflict_bits(tlbr, group, iou_threshold, kind, beta, device=tlbr.device)
+    return nms_keep_from_bits(bits, valid, device=tlbr.device)
 
 
 def nms_options_from_darknet(darknet) -> tuple:

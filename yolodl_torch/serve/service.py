@@ -22,6 +22,7 @@ letterbox transform (detect/src/main.rs:169 Transform::from_sizes_letterbox).
 
 from __future__ import annotations
 
+import dataclasses
 import io
 import queue
 import threading
@@ -213,6 +214,23 @@ class DetectionService:
         with torch.inference_mode():
             return self.postprocess(self.forward(self._upload(stacked)))
 
+    def _download(self, out):
+        """(host copy of ``out``, event after the copies; None on the CPU).
+
+        The copies to pinned host memory are queued right behind the
+        batch's own device work.  A blocking copy made later by the
+        completer would wait on this stream for every kernel the dispatcher
+        has queued since, the next batch's forward included."""
+        if self.device.type != "cuda":
+            return out, None
+        with torch.inference_mode():
+            host = dataclasses.replace(out, **{
+                f.name: getattr(out, f.name).to("cpu", non_blocking=True)
+                for f in dataclasses.fields(out)})
+            done = torch.cuda.Event()
+            done.record()
+        return host, done
+
     # -- lifecycle ---------------------------------------------------------
 
     def warmup(self) -> float:
@@ -352,7 +370,7 @@ class DetectionService:
                 while len(images) < self.batch_size:  # fixed-shape pad
                     images.append(images[-1])
                 out = self._run(np.stack(images))
-                if not self._put_inflight((batch, out)):
+                if not self._put_inflight((batch, *self._download(out))):
                     self._fail_batch(
                         batch, ServiceShutdownError("service shut down"))
             except Exception as e:  # deliver the failure, don't kill the loop
@@ -383,8 +401,10 @@ class DetectionService:
                 continue
             if item is None:
                 return
-            batch, out = item
+            batch, out, done = item
             try:
+                if done is not None:
+                    done.synchronize()
                 dets = to_host_detections(out)
                 with self.stats._lock:
                     self.stats.batches += 1
