@@ -35,7 +35,28 @@ result line:
    0 on the kernel route), and the two kernels' times on the served
    batch's own candidates.  The f32 forward on the card is held against
    the same model on the CPU at 64x64.
-4. wgrad  — conv2d_lowch and conv2d_db (yolodl_torch.kernels), forward and
+4. cli    — the port's detect, eval and serve CLIs on yolov4-csp at 608²
+   (full depth, 80 classes) from a .weights file.  The seed-0 model is
+   written out by the port's darknet saver and read back through
+   zoo.load_darknet_model, and saved and loaded as a .ckpt with an EMA:
+   both state_dicts must be bit-identical.  A CSV dataset of 24 JPEGs at
+   480x640, 720x1280, 608x608 and 375x500 (1-5 boxes each over COCO's 80
+   names, seed 0) and a detect.json5 with comments and trailing commas go
+   to build/chip_smoke_cli/.  detect_main.main (bf16, --save-json) and
+   eval_main.main (bf16, NMS by class at confidence 0.005) run in this
+   process with B1's launch counters zeroed right before and read right
+   after each: each kernel must launch once per batch, 3 times per call.
+   24 images and a parseable JSON must come out, and detect's first batch
+   must equal model -> non_max_suppression -> yolo_inference ->
+   to_host_detections on the same decoded batch.  Then `python -m
+   yolodl_torch.cli.serve_main --port 0 --batch-size 8` as a subprocess:
+   16 of the images POSTed from 4 threads, every box in its image's
+   original pixels, /stats with 0 errors, exit code 0 on SIGINT.  The
+   line gives each CLI's img/s and ms per batch (from its first decode to
+   its return) with the host's ms per batch by span (decode, the forward's
+   and the NMS's issue, device wait + unpack, drawing, AP, the rest),
+   serve's p50/p95 and the seconds to load the .weights file.
+5. wgrad  — conv2d_lowch and conv2d_db (yolodl_torch.kernels), forward and
    backward at each stride-1 low-channel conv shape of yolov4-csp at 608²,
    batch 8, bf16, with both launch counters zeroed right before and read
    right after: each kernel must have launched once per backward.  dW is
@@ -52,7 +73,7 @@ result line:
    flagship lacks (odd widths, 3, 40 and 130 input channels, 20, 24 and 72
    output channels, k 1, 3 and 5), bf16 and f32, against the plain version
    within the same 1e-4, again with identical bits from two launches.
-5. train  — first one f32 SGD step of yolov4-csp at 64², batch 2, on the
+6. train  — first one f32 SGD step of yolov4-csp at 64², batch 2, on the
    card and on the CPU from the same weights and batch: losses within
    rel 1e-4, every updated parameter within 25 % of its tensor's largest
    update plus 4 f32 ulps of its largest entry (see train_card_vs_cpu).
@@ -64,7 +85,7 @@ result line:
    wgrad launch.  Prints step ms (CUDA events), img/s, peak memory, a
    profile of one step (device ms, kernels, the costliest, the card's idle
    share) and of its parts (forward, loss, backward, optimizer).
-6. card   — `nvidia-smi --query-gpu=name,power.limit` as it prints it.
+7. card   — `nvidia-smi --query-gpu=name,power.limit` as it prints it.
 
 The line before the last lists the kernels; the last line is
 {"ok": true, "device": {...}}.  TF32 is switched off for every f32
@@ -111,9 +132,15 @@ WGRAD_RAGGED = [(2, 37, 53, 3, 24, 3), (3, 19, 19, 40, 72, 1), (2, 8, 40, 130, 2
                 (2, 20, 20, 64, 64, 5), (1, 5, 5, 3, 3, 1)]
 WGRAD_TOL = 1e-4       # dW against the plain version: f32 sums in another order
 WGRAD_LIB_TOL = 1e-3   # against conv2d_weight, whose algorithm may round more (6e-5 seen)
+CLI_IMAGES = 24
+CLI_SIZES = [(480, 640), (720, 1280), (608, 608), (375, 500)]  # original h x w, in turn
+CLI_CONF = 0.25         # detect.json5's nms_conf_thresh (the service's default)
+CLI_POSTS, CLI_CLIENTS = 16, 4
+CLI_SERVE_TIMEOUT = 300  # seconds for the serve subprocess to come up, answer and stop
+CLI_DEVICE_ARGS: list = []  # the CLIs' --device: none, so their default, the card
 TRAIN_BATCH = 16        # bench.py:20; fits the card's 80 GB (PERF.md)
 TRAIN_MAX_GT = 32       # bench.py:117
-DEVICE = "cuda"         # the wgrad and train phases' device
+DEVICE = "cuda"         # the cli, wgrad and train phases' device
 
 
 def emit(obj) -> None:
@@ -906,6 +933,345 @@ def phase_serve(iou):
     return {**launches, "pairwise_iou": dense_iou_launches}
 
 
+def cli_workspace(root, seed=0):
+    """CLI_IMAGES JPEGs under root/images at CLI_SIZES in turn (smooth
+    colour fields with noise), 1-5 boxes each over COCO's 80 names, as a
+    CSV dataset, and root/detect.json5 (comments, trailing commas).
+    Returns (config path, number of boxes)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    with open(os.path.join(REPO, "cfg", "class", "coco.class")) as f:
+        names = [line.strip() for line in f if line.strip()]
+    os.makedirs(os.path.join(root, "images"))
+    with open(os.path.join(root, "classes.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    lines, boxes = ["image_file,class_name,cy,cx,h,w"], 0
+    for i in range(CLI_IMAGES):
+        h, w = CLI_SIZES[i % len(CLI_SIZES)]
+        low = rng.integers(0, 256, (h // 40 + 2, w // 40 + 2, 3), dtype=np.uint8)
+        pixels = np.asarray(Image.fromarray(low).resize((w, h), Image.BILINEAR), np.int16)
+        pixels = np.clip(pixels + rng.integers(-12, 13, (h, w, 3)), 0, 255).astype(np.uint8)
+        Image.fromarray(pixels).save(os.path.join(root, "images", f"{i:03d}.jpg"), quality=90)
+        for _ in range(int(rng.integers(1, 6))):
+            bh, bw = rng.uniform(0.05, 0.6) * h, rng.uniform(0.05, 0.6) * w
+            cy, cx = rng.uniform(bh / 2, h - bh / 2), rng.uniform(bw / 2, w - bw / 2)
+            lines.append(f"{i:03d}.jpg,{names[rng.integers(80)]},{cy:.2f},{cx:.2f},"
+                         f"{bh:.2f},{bw:.2f}")
+            boxes += 1
+    with open(os.path.join(root, "label.csv"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    config = os.path.join(root, "detect.json5")
+    with open(config, "w") as f:
+        f.write(f"""// yolov4-csp at {IMAGE_SIZE}x{IMAGE_SIZE} on a synthetic CSV dataset
+{{
+  version: "0.1.0",
+  model: {{
+    kind: "Darknet",
+    cfg_file: "{CFG}",  // absolute: the workspace lies outside cfg/
+    minibatch_size: {BATCH},
+    devices: ["cuda:0",],
+  }},
+  input: {{
+    kind: {{
+      type: "Csv", image_size: {IMAGE_SIZE}, image_dir: "images",
+      label_file: "label.csv", classes_file: "classes.txt",
+    }},
+  }},
+  /* boxes were written to 0.01 px */
+  preprocess: {{out_of_bound_tolerance: 1.0,}},
+  output: {{
+    output_dir: "{os.path.join(root, 'out')}",
+    nms_iou_thresh: {NMS_IOU}, nms_conf_thresh: {CLI_CONF},
+  }},
+}}
+""")
+    return config, boxes
+
+
+def serve_subprocess(config, weights, images) -> dict:
+    """serve_main as a user starts it: POST CLI_POSTS images from
+    CLI_CLIENTS threads, check every answer, read /stats, stop it with
+    SIGINT.  Returns the numbers of the run."""
+    import queue
+    import signal
+
+    log = os.path.join(os.path.dirname(config), "serve.log")
+    with open(log, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "yolodl_torch.cli.serve_main", "--config-file", config,
+             "--weights", weights, "--port", "0", "--batch-size", str(BATCH), *CLI_DEVICE_ARGS],
+            stdout=subprocess.PIPE, stderr=err, text=True, cwd=REPO,
+            env={**os.environ, "PYTHONPATH": REPO})
+    lines: "queue.Queue[str]" = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(line) for line in proc.stdout], daemon=True).start()
+    t_start = time.perf_counter()
+    deadline = t_start + CLI_SERVE_TIMEOUT
+    try:
+        line = ""
+        while "serving on http://" not in line:
+            try:
+                line = lines.get(timeout=1.0)
+            except queue.Empty:
+                if proc.poll() is not None or time.perf_counter() > deadline:
+                    with open(log) as f:
+                        raise AssertionError(f"serve_main did not come up (exit code "
+                                             f"{proc.poll()}): {f.read()[-2000:]}") from None
+        up_s = time.perf_counter() - t_start
+        base = line.split("serving on ")[1].split()[0]
+        results, errors = [None] * CLI_POSTS, []
+
+        def client(c):
+            try:
+                for j in range(c, CLI_POSTS, CLI_CLIENTS):
+                    path, h, w = images[j % len(images)]
+                    with open(path, "rb") as f:
+                        req = urllib.request.Request(base + "/detect", data=f.read(), method="POST")
+                    with urllib.request.urlopen(req, timeout=120) as r:
+                        results[j] = (json.load(r), h, w)
+            except Exception as e:  # reported below
+                errors.append(repr(e))
+
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(c,)) for c in range(CLI_CLIENTS)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=max(1.0, deadline - time.perf_counter()))
+        wall = time.perf_counter() - t0
+        with urllib.request.urlopen(base + "/stats", timeout=30) as r:
+            stats = json.load(r)
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    with open(log) as f:
+        log_tail = f.read()[-2000:]
+    if rc != 0:
+        raise AssertionError(f"serve_main exited {rc} on SIGINT: {log_tail}")
+    if errors or any(r is None for r in results):
+        raise AssertionError(f"serve_main: requests failed: {errors[:3]}")
+    detections = 0
+    for body, h, w in results:
+        if not isinstance(body.get("latency_ms"), (int, float)):
+            raise AssertionError(f"serve_main: no latency_ms in {body}")
+        for d in body["detections"]:
+            x0, y0, bw, bh = d["bbox"]
+            if not (0 <= d["class"] < 80 and d.get("class_name") and CLI_CONF <= d["score"] <= 1
+                    and 0 <= x0 and 0 <= y0 and bw >= 0 and bh >= 0
+                    and x0 + bw <= w + 0.01 and y0 + bh <= h + 0.01):
+                raise AssertionError(f"serve_main: detection {d} outside its {w}x{h} image")
+        detections += len(body["detections"])
+    if stats["errors"] != 0 or stats["images_done"] != CLI_POSTS:
+        raise AssertionError(f"serve_main stats: {stats}")
+    lat = stats.get("latency_ms", {})
+    return {"serve_img_per_s": CLI_POSTS / wall, "serve_p50_ms": lat.get("p50"),
+            "serve_p95_ms": lat.get("p95"), "serve_batches": stats["batches"],
+            "serve_mean_batch_fill": stats["mean_batch_fill"], "serve_detections": detections,
+            "serve_start_s": up_s, "serve_exit_code": rc}
+
+
+def phase_cli(iou):
+    """The detect, eval and serve CLIs on yolov4-csp-608 from a .weights
+    file; see the module docstring.  Returns B1's launches per CLI call."""
+    import contextlib
+    import shutil
+
+    from yolodl_torch.bridge import params_from_jax, params_to_jax
+    from yolodl_torch.cli import detect_main, eval_main
+    from yolodl_torch.config import darknet_cfg as dk
+    from yolodl_torch.config.app_config import DetectAppConfig
+    from yolodl_torch.data import cache as cache_mod
+    from yolodl_torch import loss as loss_pkg
+    from yolodl_torch.data.datasets import SanitizedDataset
+    from yolodl_torch.loss import inference as inference_mod
+    from yolodl_torch.loss import non_max_suppression, yolo_inference
+    from yolodl_torch.loss.nms import nms_options_from_darknet
+    from yolodl_torch.models import GraphModel, zoo
+    from yolodl_torch.models.weights import save_darknet_weights
+    from yolodl_torch.train import checkpoint
+    from yolodl_torch.train import evaluation as evaluation_mod
+    from yolodl_torch.train import logging as logging_mod
+    from yolodl_torch.train.ema import ema_init, ema_update
+
+    root = os.path.join(REPO, "build", "chip_smoke_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        darknet = dk.Darknet.load(CFG)
+        model = zoo.load_darknet_model(CFG, seed=0, device=DEVICE)
+        reference = model.state_dict()
+        n_params = sum(p.numel() for p in model.parameters())
+
+        def identical(other, what):
+            got = other.state_dict()
+            differ = [k for k in reference if not torch.equal(got[k], reference[k])]
+            if set(got) != set(reference) or differ:
+                raise AssertionError(f"{what}: {len(differ)} tensors differ: {differ[:4]}")
+
+        # .weights round trip through the port's saver and zoo.load_darknet_model
+        weights = os.path.join(root, "yolov4-csp.weights")
+        save_darknet_weights(darknet, *params_to_jax(reference), weights)
+        t0 = time.perf_counter()
+        identical(zoo.load_darknet_model(CFG, weights, seed=1, device=DEVICE), ".weights round trip")
+        weights_load_s = time.perf_counter() - t0
+
+        # .ckpt round trip with an EMA that differs from the parameters
+        params = dict(model.named_parameters())
+        ema = ema_init(params)
+        with torch.no_grad():
+            ema_update(ema, {k: v * 0.5 for k, v in params.items()}, step=1000, decay=0.9)
+        path = checkpoint.save_checkpoint(os.path.join(root, "checkpoints"), 1, 0.5,
+                                          *params_to_jax(reference),
+                                          ema_params=params_to_jax(ema)[0])
+        fresh = zoo.load_darknet_model(CFG, seed=2, device=DEVICE)
+        p, s, _, meta = checkpoint.load_checkpoint(path, *params_to_jax(fresh.state_dict()))
+        params_from_jax(p, s, model=fresh)
+        identical(fresh, ".ckpt round trip")
+        ema_back = params_from_jax(meta["ema"], {})
+        if set(ema_back) != set(ema) or not all(torch.equal(ema_back[k], ema[k].cpu()) for k in ema):
+            raise AssertionError(".ckpt round trip: the EMA parameters differ")
+        del fresh, p, s, meta, ema_back
+
+        config, n_boxes = cli_workspace(root)
+        kernels = (iou.nms_conflict_bits, iou.nms_keep_from_bits)
+        batches = -(-CLI_IMAGES // BATCH)
+        spans = {}  # seconds by span of the CLI call under way
+        first_decode = []
+        real_make_loader = cache_mod.make_decode_loader
+
+        def timed(key, fn):
+            """``fn``, adding the seconds of each call to spans[key]."""
+            def wrapper(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    spans[key] = spans.get(key, 0.0) + time.perf_counter() - t0
+            return wrapper
+
+        def timed_loader(hw):
+            """The CLI's loader, noting when its first image is decoded and
+            timing each decode + letterbox."""
+            loader = real_make_loader(hw)
+            real_load = timed("decode", loader.load)
+
+            def load(record):
+                if not first_decode:
+                    first_decode.append(time.perf_counter())
+                return real_load(record)
+
+            loader.load = load
+            return loader
+
+        captured = []
+        real_unpack = inference_mod.to_host_detections
+
+        def unpack(out):
+            captured.append(real_unpack(out))
+            return captured[-1]
+
+        def run_cli(main, argv, **timed_spans):
+            """(return value, stdout lines, seconds from the first decode to
+            the return, ms per batch by span, launches), the counters zeroed
+            right before.  ``timed_spans``: span → (module or class, name of
+            the function timed during the call).  The forward and the NMS
+            are timed as the host issues them; the device's work on them is
+            waited for in the span that first reads a result."""
+            first_decode.clear()
+            spans.clear()
+            out = io.StringIO()
+            for fn in kernels:
+                fn.launches = 0
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(swapped(cache_mod, make_decode_loader=timed_loader))
+                stack.enter_context(swapped(inference_mod, to_host_detections=unpack))
+                for key, (owner, name) in timed_spans.items():
+                    stack.enter_context(swapped(owner, **{name: timed(key, getattr(owner, name))}))
+                stack.enter_context(contextlib.redirect_stdout(out))
+                result = main(argv)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - first_decode[0]
+            launches = {fn.__name__: fn.launches for fn in kernels}
+            if set(launches.values()) != {batches}:
+                raise AssertionError(f"{main.__module__}: launches {launches}, {batches} batches")
+            by_span = {k: v / batches * 1e3 for k, v in spans.items()}
+            by_span["other"] = total / batches * 1e3 - sum(by_span.values())
+            return result, out.getvalue().splitlines(), total, by_span, launches
+
+        coco_json = os.path.join(root, "detections.json")
+        _, detect_lines, detect_s, detect_spans, detect_launches = run_cli(detect_main.main, [
+            "--config-file", config, "--weights", weights, "--precision", "bfloat16",
+            "--save-json", coco_json, *CLI_DEVICE_ARGS],
+            forward=(GraphModel, "forward"), nms=(loss_pkg, "non_max_suppression"),
+            device_wait_and_unpack=(inference_mod, "to_host_detections"),
+            draw=(logging_mod, "draw_boxes_on_image"))
+        drawn = sorted(os.listdir(os.path.join(root, "out")))
+        if len(drawn) != CLI_IMAGES or len(captured) != batches:
+            raise AssertionError(f"detect_main: {len(drawn)} images, {len(captured)} batches")
+        with open(coco_json) as f:
+            coco = json.load(f)
+        if not all(set(d) == {"image_id", "file_name", "category_id", "bbox", "score"}
+                   and 0 <= d["image_id"] < CLI_IMAGES and d["score"] >= CLI_CONF
+                   for d in coco):
+            raise AssertionError("detect_main: malformed COCO JSON entries")
+
+        # detect's first batch against the direct path on the same decoded batch
+        cfg = DetectAppConfig.load(config)
+        records = SanitizedDataset(cfg.dataset.open(root), out_of_bound_tolerance=1.0).records()
+        loader = real_make_loader((IMAGE_SIZE, IMAGE_SIZE))
+        images = np.stack([loader.load(r).image for r in records[:BATCH]])
+        kind, beta = nms_options_from_darknet(darknet)
+        with torch.inference_mode():
+            pred = model(torch.from_numpy(images).to(DEVICE).to(torch.bfloat16))
+            direct = real_unpack(yolo_inference(non_max_suppression(
+                pred, iou_threshold=cfg.nms_iou_thresh, confidence_threshold=cfg.nms_conf_thresh,
+                suppress_by_class=False, class_mode="argmax", kind=kind, beta=beta),
+                pred.num_flats))
+        if direct != captured[0]:
+            same = sum(a == b for a, b in zip(direct, captured[0]))
+            raise AssertionError(f"detect_main's first batch differs from the direct path "
+                                 f"({same} of {BATCH} images agree)")
+
+        report, eval_lines, eval_s, eval_spans, eval_launches = run_cli(eval_main.main, [
+            "--config-file", config, "--weights", weights, "--precision", "bfloat16",
+            *CLI_DEVICE_ARGS],
+            forward=(GraphModel, "forward"), nms=(evaluation_mod, "non_max_suppression"),
+            ap=(evaluation_mod, "ap_at_thresholds"))
+        if not (report["images"] == CLI_IMAGES and report["ground_truths"] == n_boxes
+                and all(0.0 <= report[k] <= 1.0 for k in ("mAP@0.5", "mAP@0.5:0.95"))
+                and json.loads(eval_lines[-1]) == report):
+            raise AssertionError(f"eval_main: {report}")
+
+        src = [(os.path.join(root, "images", f"{i:03d}.jpg"), *CLI_SIZES[i % len(CLI_SIZES)])
+               for i in range(CLI_IMAGES)]
+        served = serve_subprocess(config, weights, src)
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+        emit({"phase": "cli", "model": "yolov4-csp", "image_size": IMAGE_SIZE,
+              "parameters": n_params, "batch": BATCH, "images": CLI_IMAGES,
+              "original_sizes": CLI_SIZES, "boxes": n_boxes, "dtype": "bfloat16",
+              "nms_kind": kind, "nms_beta": beta, "weights_load_s": weights_load_s,
+              "weights_mb": os.path.getsize(weights) / 1e6,
+              "detect_img_per_s": CLI_IMAGES / detect_s,
+              "detect_ms_per_batch": detect_s / batches * 1e3,
+              "detect_ms_per_batch_by_span": detect_spans,
+              "detect_detections": len(coco), "detect_stdout": detect_lines,
+              "eval_img_per_s": CLI_IMAGES / eval_s, "eval_ms_per_batch": eval_s / batches * 1e3,
+              "eval_ms_per_batch_by_span": eval_spans,
+              "eval": report, **served,
+              **{f"detect_{k}_launches": v for k, v in detect_launches.items()},
+              **{f"eval_{k}_launches": v for k, v in eval_launches.items()},
+              "card": card.splitlines()[0]})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"cli_detect": detect_launches, "cli_eval": eval_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -924,6 +1290,10 @@ def main() -> int:
           "libraries": [str(_build.library_path(n).relative_to(REPO)) for n in _build.SOURCES]})
     k = phase_kernel(iou)
     launches = phase_serve(iou)
+    # B1's launches on each path that runs it
+    by_path = {"serve": {n: launches[n] for n in ("nms_conflict_bits", "nms_keep_from_bits")},
+               "serve_dense_route": {"pairwise_iou": launches["pairwise_iou"]},
+               **phase_cli(iou)}
     wgrad_launches, wgrad = phase_wgrad()
     phase_train()
 
@@ -943,7 +1313,9 @@ def main() -> int:
                            "launched_by": "the serve breakdown's dense postprocess route"}}
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": "yolodl_torch/csrc/iou.cu", **extra,
-        "launches": launches[name], "max_abs_err": k[name]["max_abs_err"],
+        "launches": sum(p.get(name, 0) for p in by_path.values()),
+        "launches_by_path": {path: p[name] for path, p in by_path.items() if name in p},
+        "max_abs_err": k[name]["max_abs_err"],
         "ms": k[name]["ms"], "kernel_ms": k[name]["ms"], "plain_ms": k[name]["plain_ms"],
         "bound_ms": k[name]["bound_ms"], "bound_by": k[name]["bound_by"], "library_ms": None}
         for name, extra in b1.items()] + [{

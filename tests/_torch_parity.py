@@ -191,3 +191,65 @@ def train_port(tm, t_cfg, batches, accum=1):
         ts, m = step(ts, *map(torch.from_numpy, batch))
         losses.append(float(m["total_loss"]))
     return ts, losses
+
+
+# -- the inference CLIs' and evaluator's workspace: a CSV dataset of random
+# images at mixed original sizes, 80 COCO class names
+
+ORIGINAL_SIZES = [(48, 64), (72, 128), (64, 64), (38, 50)]  # h x w
+
+
+def coco_names():
+    with open(os.path.join(REPO, "cfg", "class", "coco.class")) as f:
+        return [line.strip() for line in f if line.strip()]
+
+
+def write_csv_dataset(root, n, seed, rows=None):
+    """``n`` random PNG images under ``root/images`` at ORIGINAL_SIZES in
+    turn, ``root/classes.txt`` and ``root/label.csv``.  ``rows`` maps an
+    image index to its (class index, cy, cx, h, w) pixel boxes; without it
+    each image gets one random box.  Returns [(path, h, w)]."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    names = coco_names()
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    with open(os.path.join(root, "classes.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    images, lines = [], ["image_file,class_name,cy,cx,h,w"]
+    for i in range(n):
+        h, w = ORIGINAL_SIZES[i % len(ORIGINAL_SIZES)]
+        path = os.path.join(root, "images", f"im{i:02d}.png")
+        if not os.path.exists(path):
+            Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(path)
+        images.append((path, h, w))
+        boxes = rows.get(i, []) if rows is not None else [
+            (int(rng.integers(80)), h / 2, w / 2, h / 3, w / 3)]
+        for cls, cy, cx, bh, bw in boxes:
+            lines.append(f"im{i:02d}.png,{names[cls]},{cy},{cx},{bh},{bw}")
+    with open(os.path.join(root, "label.csv"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return images
+
+
+def rows_from_detections(images, dets_per_image, size, seed, keep=3):
+    """Ground truth that makes AP non-trivial: the ``keep`` best detections
+    of each image (``to_host_detections`` entries, letterbox-frame ratio
+    boxes) mapped to original pixels and clipped, plus one random box that
+    no detection matches."""
+    from yolodl_torch.data.letterbox import letterbox_unit_transform
+
+    rng = np.random.default_rng(seed)
+    rows = {}
+    for i, ((_, h, w), dets) in enumerate(zip(images, dets_per_image)):
+        inv = letterbox_unit_transform((h, w), (size, size)).inverse()
+        out = []
+        for det in dets[:keep]:
+            t, l, b, r = inv.apply_tlbr(np.asarray([det["tlbr"]], np.float64))[0]
+            t, b = np.clip([t, b], 0, 1) * h
+            l, r = np.clip([l, r], 0, 1) * w
+            if b - t > 1 and r - l > 1:
+                out.append((det["class"], (t + b) / 2, (l + r) / 2, b - t, r - l))
+        out.append((int(rng.integers(80)), h * 0.3, w * 0.6, h * 0.2, w * 0.25))
+        rows[i] = out
+    return rows

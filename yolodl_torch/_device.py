@@ -7,11 +7,16 @@ from __future__ import annotations
 import torch
 
 
+class NoCudaDeviceError(RuntimeError):
+    """A card was asked for (the default) and there is none."""
+
+
 def resolve_device(device="cuda") -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run on the CPU")
+        raise NoCudaDeviceError(
+            "no CUDA device is available; pass device='cpu' (--device cpu on "
+            "the command line) to run on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -18,6 +18,7 @@ import pathlib
 from typing import Dict, Mapping, Optional, Tuple, Union
 
 from ..shapes import Shape
+from . import json5_reader
 
 MAX_INCLUDE_DEPTH = 5  # model.rs:11-13
 
@@ -534,12 +535,10 @@ def _parse_module(raw: Mapping) -> ModuleCfg:
 
 def _load_groups(path: pathlib.Path, depth: int) -> Dict[str, Tuple[ModuleCfg, ...]]:
     """Load `groups` of one file, recursing into `includes` (model.rs:15-42)."""
-    import json5  # only the JSON5 loaders need it; darknet cfgs do not
-
     if depth > MAX_INCLUDE_DEPTH:
         raise ValueError(f"include depth exceeds {MAX_INCLUDE_DEPTH}: {path}")
-    with open(path) as f:
-        raw = json5.load(f)
+    with open(path, encoding="utf-8") as f:
+        raw = json5_reader.load(f)
 
     groups: Dict[str, Tuple[ModuleCfg, ...]] = {}
     for include in raw.get("includes", ()):  # includes resolve relative to the file
@@ -558,11 +557,9 @@ def _load_groups(path: pathlib.Path, depth: int) -> Dict[str, Tuple[ModuleCfg, .
 
 def load_model(path: Union[str, pathlib.Path]) -> Model:
     """Load a NEWSLABv1 JSON5 model file, resolving includes."""
-    import json5
-
     path = pathlib.Path(path)
-    with open(path) as f:
-        raw = json5.load(f)
+    with open(path, encoding="utf-8") as f:
+        raw = json5_reader.load(f)
     main_group = raw.get("main_group")
     if not main_group:
         raise ValueError(f"{path}: missing 'main_group'")

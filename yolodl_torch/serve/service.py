@@ -173,7 +173,7 @@ class DetectionService:
     @classmethod
     def from_artifact(cls, path: str, **kwargs) -> "DetectionService":
         raise NotImplementedError(
-            "serving artifacts are not ported yet (ROADMAP A11)")
+            "serving artifacts are not ported yet (ROADMAP A11c, tool_main/export)")
 
     # -- device program ----------------------------------------------------
 
