@@ -56,7 +56,39 @@ result line:
    its return) with the host's ms per batch by span (decode, the forward's
    and the NMS's issue, device wait + unpack, drawing, AP, the rest),
    serve's p50/p95 and the seconds to load the .weights file.
-5. wgrad  — conv2d_lowch and conv2d_db (yolodl_torch.kernels), forward and
+5. train_main — the port's training CLI on the repo's own configs.  The
+   f32 forward of cfg/train.json5's 64x64 NEWSLAB model (it holds a
+   DeconvBn2D) on the card is held against the CPU at 64x64 first.  A CSV
+   set of 192 training and 24 held-out JPEGs (seed 0, 1-4 boxes of one
+   class) and a train.json5 made from cfg/train.json5 with the port's JSON5
+   reader go to build/chip_smoke_train/ (removed at the end); only the
+   dataset (Csv at the file's 256), logging.dir, cache_dir,
+   load_checkpoint (Disabled) and an evaluation block (every 3 steps, batch
+   8, the held-out set) change, and so does the memory: at 256², batch
+   96, f32 the model's saved activations outgrow the card's 80 GB, so
+   training.remat is set (no value changes) and the batch runs as 4 accumulated micro-batches
+   of 24; the line gives the saved bytes of a batch both ways, counted by
+   saved_tensors_hooks over one image, and the host ms of the port's
+   CRC-32C over one TFRecord cache payload.  Batch 96, the augmentations, the Hausdorff/Rect4 loss, AdamW and
+   the logging flags stay.  The CLIs run with PyTorch's
+   TF32 defaults, as in a user's process.  train_main.main
+   runs 6 steps in this process with B1's counters zeroed right before and
+   read right after: each kernel launches once for the in-training
+   inference (step 1) and once per evaluation batch (2 x 3).  Then a
+   subprocess run (ordered records, a checkpoint every step) gets SIGINT
+   after its first checkpoint and must exit 0 with a checkpoint holding
+   opt/; a FromRecent run must print "data stream resumed at record
+   step x 96" and train first on the batch an uninterrupted run trains on
+   at that step (torch.equal).  Last, detect_main runs cfg/detect.json5's
+   model (109.5 M parameters, 256², minibatch 4) from a seed-0 .ckpt over
+   the held-out images, one launch of each kernel per batch.  The line
+   gives steps/s, records/s and the data-wait share of the steady steps
+   (2 to 5; step 6 runs under torch.profiler: device ms, kernels, and the
+   card's idle share of a steady step),
+   ms per step by span (data wait, the batch's H2D copy on the card, the
+   synchronized step, the rest of the loop), evaluation ms, peak memory
+   and detect img/s, with the card's name and power limit.
+6. wgrad  — conv2d_lowch and conv2d_db (yolodl_torch.kernels), forward and
    backward at each stride-1 low-channel conv shape of yolov4-csp at 608²,
    batch 8, bf16, with both launch counters zeroed right before and read
    right after: each kernel must have launched once per backward.  dW is
@@ -73,7 +105,7 @@ result line:
    flagship lacks (odd widths, 3, 40 and 130 input channels, 20, 24 and 72
    output channels, k 1, 3 and 5), bf16 and f32, against the plain version
    within the same 1e-4, again with identical bits from two launches.
-6. train  — first one f32 SGD step of yolov4-csp at 64², batch 2, on the
+7. train  — first one f32 SGD step of yolov4-csp at 64², batch 2, on the
    card and on the CPU from the same weights and batch: losses within
    rel 1e-4, every updated parameter within 25 % of its tensor's largest
    update plus 4 f32 ulps of its largest entry (see train_card_vs_cpu).
@@ -85,7 +117,7 @@ result line:
    wgrad launch.  Prints step ms (CUDA events), img/s, peak memory, a
    profile of one step (device ms, kernels, the costliest, the card's idle
    share) and of its parts (forward, loss, backward, optimizer).
-7. card   — `nvidia-smi --query-gpu=name,power.limit` as it prints it.
+8. card   — `nvidia-smi --query-gpu=name,power.limit` as it prints it.
 
 The line before the last lists the kernels; the last line is
 {"ok": true, "device": {...}}.  TF32 is switched off for every f32
@@ -138,6 +170,19 @@ CLI_CONF = 0.25         # detect.json5's nms_conf_thresh (the service's default)
 CLI_POSTS, CLI_CLIENTS = 16, 4
 CLI_SERVE_TIMEOUT = 300  # seconds for the serve subprocess to come up, answer and stop
 CLI_DEVICE_ARGS: list = []  # the CLIs' --device: none, so their default, the card
+TRAIN_MAIN_ROOT = os.path.join(REPO, "build", "chip_smoke_train")  # removed at the end
+TRAIN_MAIN_CONFIG = os.path.join(REPO, "cfg", "train.json5")
+DETECT_MAIN_CONFIG = os.path.join(REPO, "cfg", "detect.json5")
+TRAIN_MAIN_IMAGES = 192       # the synthetic training set (two batches of 96)
+TRAIN_MAIN_EVAL_IMAGES = 24   # held out, for the in-training evaluation
+TRAIN_MAIN_SIZES = [(360, 480), (256, 256), (300, 400), (480, 360)]  # original h x w
+TRAIN_MAIN_STEPS = 6          # the timed in-process run
+TRAIN_MAIN_EVAL_INTERVAL = 3  # evaluations at steps 3 and 6
+TRAIN_MAIN_EVAL_BATCH = 8     # 3 batches per evaluation
+TRAIN_MAIN_TIMEOUT = 600      # seconds for the interrupted subprocess
+TRAIN_MAIN_ACCUMULATION = 4   # micro-batches of 24: batch 96 at 256² fits 80 GB no other way
+BF16_BOX_TOL = 0.05      # bf16 vs f32 forward at 608²: max|Δ| / max|f32| of cycxhw
+BF16_LOGIT_TOL = 0.1     # ... and of the objectness and class logits
 TRAIN_BATCH = 16        # bench.py:20; fits the card's 80 GB (PERF.md)
 TRAIN_MAX_GT = 32       # bench.py:117
 DEVICE = "cuda"         # the cli, wgrad and train phases' device
@@ -740,6 +785,30 @@ class swapped:
             setattr(self.module, k, v)
 
 
+def bf16_vs_f32(model) -> None:
+    """The card's bf16 forward of the seeded model at IMAGE_SIZE² against
+    its f32 forward on the same two images: max|Δ| / max|f32| of the boxes
+    within BF16_BOX_TOL and of the logits within BF16_LOGIT_TOL.  The line
+    is printed before the check."""
+    x = torch.from_numpy(np.random.default_rng(3).uniform(0, 1, (2, 3, IMAGE_SIZE, IMAGE_SIZE))
+                         .astype(np.float32)).to(DEVICE)
+    with torch.inference_mode():
+        f32, bf16 = model(x), model(x.to(torch.bfloat16))
+    line = {"phase": "precision", "model": "yolov4-csp", "image_size": IMAGE_SIZE,
+            "tolerance": {"cycxhw": BF16_BOX_TOL, "obj_logit": BF16_LOGIT_TOL,
+                          "class_logit": BF16_LOGIT_TOL}}
+    for f in ("cycxhw", "obj_logit", "class_logit"):
+        r, o = getattr(f32, f).float(), getattr(bf16, f).float()
+        scale = float(r.abs().max())
+        line[f] = {"max_abs_err_of_max": float((o - r).abs().max()) / scale,
+                   "mean_abs_err_of_max": float((o - r).abs().mean()) / scale,
+                   "max_abs_f32": scale}
+    emit(line)
+    for f in ("cycxhw", "obj_logit", "class_logit"):
+        if not line[f]["max_abs_err_of_max"] <= line["tolerance"][f]:
+            raise AssertionError(f"bf16 forward {f}: {line[f]} beyond {line['tolerance'][f]}")
+
+
 def phase_serve(iou):
     from yolodl_torch.config import darknet_cfg as dk
     from yolodl_torch.graph.from_darknet import graph_from_darknet
@@ -770,6 +839,7 @@ def phase_serve(iou):
         if not err <= 1e-4 * scale + 1e-6:
             raise AssertionError(f"f32 forward {f}: card vs cpu max|d|={err} (max {scale})")
     del cpu_model
+    bf16_vs_f32(model)
 
     svc = DetectionService(model, image_size=IMAGE_SIZE, batch_size=BATCH,
                            window_ms=10.0, nms_kind=nms_kind, nms_beta=nms_beta)
@@ -1272,6 +1342,417 @@ def phase_cli(iou):
     return {"cli_detect": detect_launches, "cli_eval": eval_launches}
 
 
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def train_main_workspace(root, size, seed=0):
+    """JPEGs at TRAIN_MAIN_SIZES in turn (smooth colour fields with noise,
+    seed 0), 1-4 boxes each of cfg/class/iii.class's first class (the
+    64x64 model of cfg/train.json5 has one), as a training CSV set of
+    TRAIN_MAIN_IMAGES and a held-out one of TRAIN_MAIN_EVAL_IMAGES.
+    Returns {name: dataset.kind} for "train" and "eval"."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    with open(os.path.join(REPO, "cfg", "class", "iii.class")) as f:
+        name = f.readline().strip()
+    os.makedirs(os.path.join(root, "images"))
+    with open(os.path.join(root, "classes.txt"), "w") as f:
+        f.write(name + "\n")
+    lines = {"train": ["image_file,class_name,cy,cx,h,w"], "eval": ["image_file,class_name,cy,cx,h,w"]}
+    for i in range(TRAIN_MAIN_IMAGES + TRAIN_MAIN_EVAL_IMAGES):
+        h, w = TRAIN_MAIN_SIZES[i % len(TRAIN_MAIN_SIZES)]
+        low = rng.integers(0, 256, (h // 40 + 2, w // 40 + 2, 3), dtype=np.uint8)
+        pixels = np.asarray(Image.fromarray(low).resize((w, h), Image.BILINEAR), np.int16)
+        pixels = np.clip(pixels + rng.integers(-12, 13, (h, w, 3)), 0, 255).astype(np.uint8)
+        Image.fromarray(pixels).save(os.path.join(root, "images", f"{i:04d}.jpg"), quality=90)
+        split = "train" if i < TRAIN_MAIN_IMAGES else "eval"
+        for _ in range(int(rng.integers(1, 5))):
+            bh, bw = rng.uniform(0.1, 0.5) * h, rng.uniform(0.1, 0.5) * w
+            cy, cx = rng.uniform(bh / 2, h - bh / 2), rng.uniform(bw / 2, w - bw / 2)
+            lines[split].append(f"{i:04d}.jpg,{name},{cy:.2f},{cx:.2f},{bh:.2f},{bw:.2f}")
+    kinds = {}
+    for split, rows in lines.items():
+        with open(os.path.join(root, f"{split}.csv"), "w") as f:
+            f.write("\n".join(rows) + "\n")
+        kinds[split] = {"type": "Csv", "image_size": size, "input_channels": 3,
+                        "image_dir": os.path.join(root, "images"),
+                        "label_file": os.path.join(root, f"{split}.csv"),
+                        "classes_file": os.path.join(root, "classes.txt")}
+    return kinds
+
+
+def write_json(path, raw) -> str:
+    with open(path, "w") as f:
+        json.dump(raw, f, indent=1)
+    return path
+
+
+def newslab_card_vs_cpu(path) -> dict:
+    """The f32 forward of a NEWSLAB model on the card and on the CPU, same
+    seeded weights, 64x64: within 1e-4 · max|ref| + 1e-6, as the darknet
+    model in phase serve."""
+    from yolodl_torch.models import zoo
+
+    x = torch.from_numpy(np.random.default_rng(2).uniform(0, 1, (2, 3, 64, 64))
+                         .astype(np.float32))
+    out = {}
+    with torch.inference_mode():
+        ref = zoo.load_newslab_model(path, seed=0, device="cpu")(x)
+        got = zoo.load_newslab_model(path, seed=0, device=DEVICE)(x.to(DEVICE))
+    for f in ("cycxhw", "obj_logit", "class_logit"):
+        r, o = getattr(ref, f), getattr(got, f).cpu()
+        scale, err = float(r.abs().max()), float((o - r).abs().max())
+        out[f"{f}_max_abs_err"] = err
+        if not err <= 1e-4 * scale + 1e-6:
+            raise AssertionError(f"NEWSLAB f32 forward {f}: card vs cpu max|d|={err} "
+                                 f"(max {scale})")
+    return out
+
+
+def saved_activation_bytes(model_path, size) -> dict:
+    """Bytes autograd saves for the backward of one image's training
+    forward at size², without and with remat "blocks" (unique storages,
+    torch.autograd.graph.saved_tensors_hooks), on the card."""
+    from yolodl_torch.graph import Graph
+    from yolodl_torch.models import YoloModel
+
+    out = {}
+    x = torch.rand((1, 3, size, size), device=DEVICE)
+    for remat in ("off", "blocks"):
+        model = YoloModel(Graph.load_newslab_v1_json(model_path), device=DEVICE, remat=remat)
+        seen, total = set(), [0]
+
+        def pack(t):
+            key = (t.untyped_storage().data_ptr(), t.untyped_storage().nbytes())
+            if key not in seen:
+                seen.add(key)
+                total[0] += key[1]
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            model(x, train=True)
+        out[remat] = total[0]
+        del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def crc32c_ms(size) -> float:
+    """Median host ms of the port's CRC-32C over one TFRecord cache payload
+    (a 3 x size x size u8 image), 20 calls."""
+    from yolodl_torch.data.tfrecord_cache import crc32c
+
+    payload = np.random.default_rng(0).integers(0, 256, 3 * size * size, np.uint8).tobytes()
+    crc32c(payload)
+    times = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        crc32c(payload)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_train_main(iou):
+    """yolodl_torch.cli.train_main on cfg/train.json5's model and recipe at
+    batch 96, interrupted and resumed, then detect_main on cfg/detect.json5's
+    model; see the module docstring.  Returns B1's launches per path."""
+    import contextlib
+    import glob
+    import shutil
+    import signal
+
+    from yolodl_torch import train as train_pkg
+    from yolodl_torch.bridge import params_to_jax
+    from yolodl_torch.cli import detect_main, train_main
+    from yolodl_torch.config import json5_reader
+    from yolodl_torch.data import pipeline as pipeline_mod
+    from yolodl_torch.models import zoo
+    from yolodl_torch.train import checkpoint
+    from yolodl_torch.train import evaluation as evaluation_mod
+
+    root = TRAIN_MAIN_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    kernels = (iou.nms_conflict_bits, iou.nms_keep_from_bits)
+
+    def run_train_main(*argv):
+        """train_main.main in this process, with PyTorch's TF32 defaults, as
+        in a user's process (cuDNN convs in TF32); its SIGINT/SIGTERM
+        handlers and the smoke's TF32 settings are put back afterwards."""
+        saved = {s: signal.getsignal(s) for s in (signal.SIGINT, signal.SIGTERM)}
+        with swapped(torch.backends.cudnn, allow_tf32=True):
+            try:
+                train_main.main([*argv, *CLI_DEVICE_ARGS])
+            finally:
+                for s, handler in saved.items():
+                    signal.signal(s, handler)
+
+    try:
+        with open(TRAIN_MAIN_CONFIG) as f:
+            raw = json5_reader.load(f)
+        model_path = os.path.join(REPO, raw["model"]["cfg_file"])
+        parity = newslab_card_vs_cpu(model_path)
+        size = int(raw["dataset"]["kind"]["image_size"])  # the Iii set's, as in the file
+        saved = saved_activation_bytes(model_path, size)
+        kinds = train_main_workspace(root, size)
+        batch = int(raw["training"]["batch_size"])
+        # what changes: the dataset, logging.dir, cache_dir, load_checkpoint
+        # and an evaluation block; the model path only becomes absolute
+        raw["model"]["cfg_file"] = model_path
+        raw["dataset"]["kind"] = kinds["train"]
+        raw["logging"]["dir"] = os.path.join(root, "logs")
+        raw["preprocessor"]["cache"]["cache_dir"] = os.path.join(root, "cache")
+        raw["training"]["load_checkpoint"] = {"type": "Disabled"}
+        # at 256², batch 96, f32 the model's saved activations outgrow the
+        # card's 80 GB (its head is at full resolution, 65,536 flats an
+        # image; the line's saved_activations_gb_per_batch).  remat "blocks"
+        # changes no value (tests/test_torch_newslab_ops.py) and cuts them,
+        # but a block's recompute at batch 96 still outgrew the card; so the
+        # batch of 96 also runs as 4 accumulated micro-batches of 24
+        # (darknet's subdivisions; BN normalizes over each micro-batch)
+        raw["training"]["remat"] = True
+        raw["training"]["accumulation_steps"] = TRAIN_MAIN_ACCUMULATION
+        raw["evaluation"] = {"interval": TRAIN_MAIN_EVAL_INTERVAL,
+                             "batch_size": TRAIN_MAIN_EVAL_BATCH,
+                             "dataset": {"kind": kinds["eval"]}}
+        config = write_json(os.path.join(root, "train.json5"), raw)
+
+        # the timed run, in this process: B1's counters zeroed right before
+        spans = {"data_wait": [], "step": [], "evaluation": []}
+        losses, records, profiled = [], [], {}
+        real_prefetch, real_make_step = pipeline_mod.device_prefetch, train_pkg.make_train_step
+        real_eval = evaluation_mod.DatasetEvaluator.__call__
+
+        def timed_prefetch(iterator, device="cuda", depth=2):
+            it = real_prefetch(iterator, device, depth)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(it)
+                except StopIteration:
+                    return
+                spans["data_wait"].append(time.perf_counter() - t0)
+                records.append(item[0])
+                yield item
+
+        def timed_make_step(*args, **kwargs):
+            step = real_make_step(*args, **kwargs)
+
+            def run(ts, *batch_args):
+                t0 = time.perf_counter()
+                if len(spans["step"]) < TRAIN_MAIN_STEPS - 1:
+                    ts, metrics = step(ts, *batch_args)
+                    torch.cuda.synchronize()
+                else:  # the last step under the profiler: device time, kernels
+                    from torch.profiler import ProfilerActivity, profile
+
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        ts, metrics = step(ts, *batch_args)
+                        torch.cuda.synchronize()
+                    device = [e for e in prof.key_averages() if is_device_work(e)]
+                    device.sort(key=lambda e: e.self_device_time_total, reverse=True)
+                    profiled.update({
+                        "profiled_step_kernels": sum(e.count for e in device),
+                        "profiled_step_device_ms": sum(
+                            e.self_device_time_total for e in device) / 1e3,
+                        "profiled_step_top": [[e.key[:160], e.count,
+                                               e.self_device_time_total / 1e3]
+                                              for e in device[:8]]})
+                spans["step"].append(time.perf_counter() - t0)
+                losses.append(float(metrics["total_loss"]))
+                return ts, metrics
+            return run
+
+        def timed_eval(self):
+            t0 = time.perf_counter()
+            try:
+                return real_eval(self)
+            finally:
+                spans["evaluation"].append(time.perf_counter() - t0)
+
+        for fn in kernels:
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        out = io.StringIO()
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(swapped(pipeline_mod, device_prefetch=timed_prefetch))
+            stack.enter_context(swapped(train_pkg, make_train_step=timed_make_step))
+            stack.enter_context(swapped(evaluation_mod.DatasetEvaluator, __call__=timed_eval))
+            stack.enter_context(contextlib.redirect_stdout(out))
+            t0 = time.perf_counter()
+            run_train_main("--config-file", config, "--max-steps", str(TRAIN_MAIN_STEPS))
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        lines = out.getvalue().splitlines()
+        evaluations = TRAIN_MAIN_STEPS // TRAIN_MAIN_EVAL_INTERVAL
+        per_eval = -(-TRAIN_MAIN_EVAL_IMAGES // TRAIN_MAIN_EVAL_BATCH)
+        # one inference (step 1) and one launch per evaluation batch
+        if set(launches.values()) != {1 + evaluations * per_eval}:
+            raise AssertionError(f"train_main: B1 launches {launches}, expected "
+                                 f"1 + {evaluations} x {per_eval}")
+        if len(losses) != TRAIN_MAIN_STEPS or not all(np.isfinite(losses)):
+            raise AssertionError(f"train_main losses {losses}")
+        if sum("val mAP@0.5" in line for line in lines) != evaluations:
+            raise AssertionError(f"train_main printed no evaluation lines: {lines}")
+        (run_dir,) = [os.path.join(root, "logs", d) for d in os.listdir(os.path.join(root, "logs"))]
+        ckpts = sorted(os.listdir(os.path.join(run_dir, "checkpoints")))
+        if not (ckpts and os.path.exists(os.path.join(run_dir, "best.json"))
+                and any(n.startswith("events.out.tfevents") for n in os.listdir(run_dir))):
+            raise AssertionError(f"train_main run dir: {os.listdir(run_dir)}")
+        h2d = [a.elapsed_time(b) for a, b in (r.upload_events for r in records
+                                              if r.upload_events is not None)]
+        # steady steps: not the first (it also waits for the first decode and
+        # cuDNN's first calls) and not the last (profiled)
+        steady = slice(1, TRAIN_MAIN_STEPS - 1)
+        n_steady = TRAIN_MAIN_STEPS - 2
+        wait_ms = [v * 1e3 for v in spans["data_wait"][:TRAIN_MAIN_STEPS]]
+        step_ms = [v * 1e3 for v in spans["step"]]
+        eval_ms = [v * 1e3 for v in spans["evaluation"]]
+        loop_ms = (total_s * 1e3 - sum(wait_ms) - sum(step_ms) - sum(eval_ms)) / TRAIN_MAIN_STEPS
+        steady_ms = (sum(wait_ms[steady]) + sum(step_ms[steady])) / n_steady
+        if "profiled_step_device_ms" in profiled:
+            # the profiler's own cost stretches the profiled step's wall, so
+            # the card's idle share is read against the steady steps' mean
+            profiled["profiled_step_wall_ms"] = step_ms[-1]
+            profiled["idle_share_of_steady_step"] = (
+                1.0 - profiled["profiled_step_device_ms"] / steady_ms)
+
+        # SIGINT after a step: a subprocess, ordered records so that the
+        # resumed batch can be compared (the file's unordered_records lets
+        # records arrive as workers finish them)
+        raw["preprocessor"].setdefault("pipeline", {})["unordered_records"] = False
+        raw["training"]["save_checkpoint_steps"] = 1
+        raw["logging"]["dir"] = os.path.join(root, "logs_interrupted")
+        interrupted = write_json(os.path.join(root, "interrupted.json5"), raw)
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "yolodl_torch.cli.train_main", "--config-file", interrupted,
+             *CLI_DEVICE_ARGS],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO,
+            env={**os.environ, "PYTHONPATH": REPO})
+        t0 = time.perf_counter()
+        try:
+            pattern = os.path.join(raw["logging"]["dir"], "*", "checkpoints", "*.ckpt")
+            while not glob.glob(pattern):
+                if proc.poll() is not None or time.perf_counter() - t0 > TRAIN_MAIN_TIMEOUT:
+                    raise AssertionError(f"interrupted run: no checkpoint "
+                                         f"(exit {proc.poll()}): {proc.communicate()[1][-2000:]}")
+                time.sleep(0.1)
+            proc.send_signal(signal.SIGINT)
+            proc_out, proc_err = proc.communicate(timeout=TRAIN_MAIN_TIMEOUT)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        said = [x for x in proc_out.splitlines() if x.startswith("received signal")]
+        if proc.returncode != 0 or not said:
+            raise AssertionError(f"interrupted run: exit {proc.returncode}: {proc_err[-2000:]}")
+        stopped_at = int(said[0].split("at step ")[1].split(",")[0])
+        newest = sorted(glob.glob(pattern))[-1]
+        with np.load(newest) as f:
+            meta = json.loads(bytes(f["__meta__"].tobytes()).decode())
+            opt_entries = sum(k.startswith("opt/") for k in f.files)
+        if not (meta["has_opt"] and meta["step"] == stopped_at and opt_entries):
+            raise AssertionError(f"interrupted run's checkpoint: {meta}, {opt_entries} opt/")
+
+        def first_batches(cfg, steps):
+            """train_main in this process → the batches its step was given."""
+            seen = []
+
+            def recording(*args, **kwargs):
+                step = real_make_step(*args, **kwargs)
+
+                def run(ts, *batch_args):
+                    seen.append(tuple(a.clone() for a in batch_args))
+                    return step(ts, *batch_args)
+                return run
+
+            said = io.StringIO()
+            with swapped(train_pkg, make_train_step=recording), contextlib.redirect_stdout(said):
+                run_train_main("--config-file", cfg, "--max-steps", str(steps))
+            return seen, said.getvalue()
+
+        raw["training"]["load_checkpoint"] = {"type": "FromRecent"}
+        resumed, said = first_batches(write_json(os.path.join(root, "resumed.json5"), raw),
+                                      stopped_at + 1)
+        if (f"data stream resumed at record {stopped_at * batch}" not in said
+                or f"restored checkpoint at step {stopped_at}" not in said or len(resumed) != 1):
+            raise AssertionError(f"resumed run: {said[-2000:]}")
+        raw["training"]["load_checkpoint"] = {"type": "Disabled"}
+        raw["logging"]["dir"] = os.path.join(root, "logs_uninterrupted")
+        whole, _ = first_batches(write_json(os.path.join(root, "whole.json5"), raw),
+                                 stopped_at + 1)
+        if not all(torch.equal(a, b) for a, b in zip(resumed[0], whole[stopped_at])):
+            raise AssertionError("the resumed run's first batch differs from the "
+                                 f"uninterrupted run's batch {stopped_at}")
+        del resumed, whole
+
+        # detect_main on cfg/detect.json5's model from a seed-0 .ckpt
+        with open(DETECT_MAIN_CONFIG) as f:
+            det = json5_reader.load(f)
+        det_model_path = os.path.join(REPO, det["model"]["cfg_file"])
+        model = zoo.load_newslab_model(det_model_path, seed=0, device=DEVICE)
+        n_params = sum(p.numel() for p in model.parameters())
+        ckpt = checkpoint.save_checkpoint(os.path.join(root, "detect_ckpt"), 0, 0.0,
+                                          *params_to_jax(model.state_dict()))
+        del model
+        det["model"]["cfg_file"] = det_model_path
+        det["input"]["kind"] = {**kinds["eval"], "image_size": det["input"]["kind"]["image_size"]}
+        det["output"]["output_dir"] = os.path.join(root, "detect_out")
+        det_config = write_json(os.path.join(root, "detect.json5"), det)
+        for fn in kernels:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()), \
+                swapped(torch.backends.cudnn, allow_tf32=True):
+            detect_main.main(["--config-file", det_config, "--checkpoint", ckpt,
+                              *CLI_DEVICE_ARGS])
+        torch.cuda.synchronize()
+        detect_s = time.perf_counter() - t0
+        detect_launches = {fn.__name__: fn.launches for fn in kernels}
+        det_batches = -(-TRAIN_MAIN_EVAL_IMAGES // int(det["model"]["minibatch_size"]))
+        drawn = len(os.listdir(det["output"]["output_dir"]))
+        if set(detect_launches.values()) != {det_batches} or drawn != TRAIN_MAIN_EVAL_IMAGES:
+            raise AssertionError(f"detect_main: {drawn} images, launches {detect_launches}")
+
+        emit({"phase": "train_main", "config": "cfg/train.json5",
+              "model": raw["model"]["cfg_file"].replace(REPO + os.sep, ""),
+              "image_size": size, "batch": batch, "steps": TRAIN_MAIN_STEPS,
+              "images": TRAIN_MAIN_IMAGES, "eval_images": TRAIN_MAIN_EVAL_IMAGES,
+              "accumulation_steps": TRAIN_MAIN_ACCUMULATION, "remat": "blocks",
+              "steady_steps": n_steady, "steady_ms_per_step": steady_ms,
+              "steps_per_s": 1e3 / steady_ms, "records_per_s": batch * 1e3 / steady_ms,
+              "data_wait_share": sum(wait_ms[steady]) / (steady_ms * n_steady),
+              "step_ms_by_span": {
+                  "data_wait": wait_ms, "h2d_device": h2d[:TRAIN_MAIN_STEPS],
+                  "step": step_ms, "logging_and_rest_mean": loop_ms},
+              "evaluation_ms": eval_ms, "first_loss": losses[0], "last_loss": losses[-1],
+              **profiled,
+              "peak_memory_gb": peak_gb, "run_s": total_s, "stdout": lines[-4:],
+              "saved_activations_gb_per_batch": {k: v * batch / 1e9 for k, v in saved.items()},
+              "crc32c_host_ms_per_record": crc32c_ms(size),
+              **{f"{k}_launches": v for k, v in launches.items()},
+              "interrupted_at_step": stopped_at, "resumed_batch_equal": True,
+              "newslab_card_vs_cpu_64": parity,
+              "detect_model": det["model"]["cfg_file"].replace(REPO + os.sep, ""),
+              "detect_parameters": n_params, "detect_image_size": det["input"]["kind"]["image_size"],
+              "detect_batch": int(det["model"]["minibatch_size"]),
+              "detect_img_per_s": TRAIN_MAIN_EVAL_IMAGES / detect_s,
+              **{f"detect_{k}_launches": v for k, v in detect_launches.items()},
+              "card": card_line()})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"train_main": launches, "detect_main_newslab": detect_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1293,7 +1774,7 @@ def main() -> int:
     # B1's launches on each path that runs it
     by_path = {"serve": {n: launches[n] for n in ("nms_conflict_bits", "nms_keep_from_bits")},
                "serve_dense_route": {"pairwise_iou": launches["pairwise_iou"]},
-               **phase_cli(iou)}
+               **phase_cli(iou), **phase_train_main(iou)}
     wgrad_launches, wgrad = phase_wgrad()
     phase_train()
 

@@ -2,6 +2,7 @@
 reference and the port with the same weights, random predictions and
 targets, and the training tests' models, batches and step loops."""
 
+import json
 import os
 
 import jax
@@ -13,7 +14,7 @@ from yolodl_tpu.graph.from_darknet import load_darknet_graph as j_load
 from yolodl_tpu.models import YoloModel as JYoloModel
 from yolodl_tpu.train import loop as j_loop
 from yolodl_tpu.train.lr_schedule import LrScheduleConfig as JLr
-from yolodl_torch.bridge import params_from_jax
+from yolodl_torch.bridge import params_from_jax, params_to_jax
 from yolodl_torch.graph.from_darknet import load_darknet_graph as t_load
 from yolodl_torch.models import YoloModel
 from yolodl_torch.train import loop as t_loop
@@ -40,6 +41,54 @@ def randomize_bn(params, state, seed):
     return params, state
 
 
+def seeded_trees(init, seed):
+    """Numpy (params, state) trees of the shapes ``init(key)`` gives,
+    filled from ``np.random.default_rng(seed)`` without running ``init``
+    (the reference's eager init takes seconds for a block and tens of
+    seconds for a 100 M-parameter model): kernels uniform in ±1/√fan_in,
+    conv biases in ±0.1, BN scale in [0.8, 1.2], bias N(0, 0.2), mean
+    N(0, 0.05) and var in [0.15, 0.35], which keeps the activations of the
+    act_bn NEWSLAB models near unit scale through 100+ layers."""
+    rng = np.random.default_rng(seed)
+
+    def fill(path, spec):
+        name = path[-1].key
+        in_bn = len(path) > 1 and getattr(path[-2], "key", None) == "bn"
+        shape = spec.shape
+        if name == "w":
+            bound = 1.0 / np.sqrt(np.prod(shape[:-1]))
+            value = rng.uniform(-bound, bound, shape)
+        elif name == "b":
+            value = rng.uniform(-0.1, 0.1, shape)
+        elif in_bn and name == "scale":
+            value = rng.uniform(0.8, 1.2, shape)
+        elif in_bn and name == "bias":
+            value = rng.normal(0, 0.2, shape)
+        elif in_bn and name == "mean":
+            value = rng.normal(0, 0.05, shape)
+        elif in_bn and name == "var":
+            value = rng.uniform(0.15, 0.35, shape)
+        else:
+            raise KeyError(f"no fill for {path}")
+        return value.astype(np.float32)
+
+    p_spec, s_spec = jax.eval_shape(init, jax.random.PRNGKey(0))
+    return (jax.tree_util.tree_map_with_path(fill, p_spec),
+            jax.tree_util.tree_map_with_path(fill, s_spec))
+
+
+def flat_leaves(tree, prefix=""):
+    """{'<node>/<sub>/…/<leaf>': np.ndarray} of a nested params or state
+    tree, the reference's tree-path spelling."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
 def reference_and_port(cfg_name, seed=0):
     path = os.path.join(REPO, "cfg", "darknet", f"{cfg_name}.cfg")
     jm = JYoloModel(j_load(path), spd_stem="off")
@@ -47,6 +96,86 @@ def reference_and_port(cfg_name, seed=0):
     tm = YoloModel(t_load(path), device="cpu")
     tm.load_state_dict(params_from_jax(params, state))
     return jm, params, state, tm
+
+
+NEWSLAB_MODELS = ("yolov4-csp-custom-64x64-2021-08-21", "yolov4-csp-custom-128x128-2021-07-17",
+                  "yolov4-csp-custom-2021-03-08", "yolov4-csp-custom-2021-03-11",
+                  "yolov4-csp-custom-2021-03-11-1", "yolov4-csp-custom-2021-03-11-2")
+
+
+def small_newslab_spec():
+    """A 16² graph of every NEWSLAB kind: stem 8² → DarkCsp2D → SppCsp2D →
+    DeconvBn2D 16² → reflection pad → avg pool → conv 8², summed with a side
+    branch and concatenated with the SppCsp2D output."""
+    return {"main_group": "m", "groups": {"m": [
+        {"name": "input", "kind": "Input", "shape": ["_", 3, 16, 16]},
+        {"name": "stem", "kind": "ConvBn2D", "c": 8, "k": 3, "s": 2},
+        {"name": "csp", "kind": "DarkCsp2D", "c": 8, "repeat": 2},
+        {"name": "spp", "kind": "SppCsp2D", "c": 8, "k": [1, 3, 5]},
+        {"name": "up", "kind": "DeconvBn2D", "c": 6, "k": 3, "s": 2, "op": 1},
+        {"name": "pad", "kind": "DynamicPad2D", "pad_kind": "reflection",
+         "t": 1, "b": 1, "l": 1, "r": 1},
+        {"name": "pool", "kind": "MaxPool", "size": 3, "stride_y": 1, "stride_x": 1,
+         "pool_kind": "avg"},
+        {"name": "back", "kind": "ConvBn2D", "c": 6, "k": 3, "s": 2},
+        {"name": "side", "kind": "ConvBn2D", "c": 6, "k": 1, "from": "spp"},
+        {"name": "sum", "kind": "Sum2D", "from": ["back", "side"]},
+        {"name": "cat", "kind": "Concat2D", "from": ["sum", "spp"]},
+        {"name": "head", "kind": "Conv2D", "c": 2 * 7, "k": 1},
+        {"name": "det", "kind": "Detect2D", "classes": 2, "anchors": [[0.3, 0.4], [0.6, 0.5]]},
+        {"name": "output", "kind": "MergeDetect2D", "from": ["det"]},
+    ]}}
+
+
+def small_newslab_batch(seed):
+    """A seeded (images, boxes, classes, mask) batch of two 16² images for
+    :func:`small_newslab_spec`."""
+    x = np.random.default_rng(seed).uniform(0, 1, (2, 3, 16, 16)).astype(np.float32)
+    return (x, *random_targets(2, 4, seed, num_classes=2))
+
+
+def newslab_reference_and_port(name, seed=0):
+    """(reference model, params, state, port model) of ``cfg/model/<name>.json5``
+    with seeded numpy trees (:func:`seeded_trees`) loaded into both."""
+    from yolodl_tpu.graph import Graph as JGraph
+    from yolodl_torch.graph import Graph as TGraph
+
+    path = os.path.join(REPO, "cfg", "model", f"{name}.json5")
+    jm = JYoloModel(JGraph.load_newslab_v1_json(path), spd_stem="off")
+    params, state = seeded_trees(jm.init, seed)
+    tm = YoloModel(TGraph.load_newslab_v1_json(path), device="cpu")
+    params_from_jax(params, state, model=tm)
+    return jm, params, state, tm
+
+
+NEWSLAB_STEP_CASES = {"sgd": dict(optimizer="sgd", lr=3e-4),
+                      "adamw": dict(optimizer="adam", lr=1e-5, weight_decay=5e-4)}
+
+
+def newslab_one_step_matches(name, case):
+    """One step of ``cfg/model/<name>.json5`` in both packages from the same
+    seeded trees; see test_torch_newslab_train.py for the tolerances."""
+    jm, params, state, tm = newslab_reference_and_port(name)
+    rng = np.random.default_rng(11)
+    batch = (rng.uniform(0, 1, (2, 3, 64, 64)).astype(np.float32),
+             *random_targets(2, 8, 12, num_classes=tm.num_classes))
+    j_cfg, t_cfg = train_configs(**NEWSLAB_STEP_CASES[case])
+    j_ts, j_losses = train_reference(jm, params, state, j_cfg, [batch])
+    t_ts, t_losses = train_port(tm, t_cfg, [batch])
+    assert t_ts.step == 1 and np.isfinite(j_losses[0])
+    np.testing.assert_allclose(t_losses, j_losses, rtol=1e-4)
+    t_params, t_state = params_to_jax(tm.state_dict())
+    jp, tp = flat_leaves(j_ts.params), flat_leaves(t_params)
+    assert jp.keys() == tp.keys()
+    tol = 3e-4 if case == "sgd" else 1e-2
+    for k in jp:
+        np.testing.assert_allclose(tp[k], jp[k], rtol=0,
+                                   atol=tol * float(np.abs(jp[k]).max()), err_msg=k)
+    js, ts = flat_leaves(j_ts.state), flat_leaves(t_state)
+    assert js.keys() == ts.keys()
+    for k in js:
+        np.testing.assert_allclose(ts[k], js[k], rtol=0,
+                                   atol=1e-4 * float(np.abs(js[k]).max()), err_msg=k)
 
 
 def head_infos(cfg_name, size=64):
@@ -111,11 +240,12 @@ def named_leaves(tree):
     return out
 
 
-def assert_forward_matches(cfg_name, size=64):
+def assert_forward_matches(cfg_name, size=64, models=None):
     """Port and reference forward on the same seeded input, NCHW and NHWC:
     rtol 1e-4 with atol 1e-4 * max|ref| (f32 convolutions sum in another
-    order, and the difference grows with depth)."""
-    jm, params, state, tm = reference_and_port(cfg_name)
+    order, and the difference grows with depth).  ``models`` is a
+    (reference, params, state, port) tuple; the darknet cfg's by default."""
+    jm, params, state, tm = models or reference_and_port(cfg_name)
     x = np.random.default_rng(1).uniform(0, 1, (2, 3, size, size)).astype(np.float32)
     ref, _ = jax.jit(lambda p, s, x: jm.apply(p, s, x, train=False))(
         jax.tree_util.tree_map(jnp.asarray, params),
@@ -253,3 +383,75 @@ def rows_from_detections(images, dets_per_image, size, seed, keep=3):
         out.append((int(rng.integers(80)), h * 0.3, w * 0.6, h * 0.2, w * 0.25))
         rows[i] = out
     return rows
+
+
+# -- the training CLIs' workspace
+
+
+def write_train_workspace(root, **training):
+    """The tests/test_cli.py-style training workspace under ``root``: six
+    48² PNGs with a red square as a CSV set, a three-conv NEWSLAB model at
+    32², mosaic and colour jitter on; ``training`` entries override the
+    config's.  Returns the path of its train.json5."""
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    (root / "images").mkdir(parents=True)
+    for i in range(6):
+        arr = rng.uniform(0, 255, (48, 48, 3)).astype(np.uint8)
+        arr[10:30, 10:30] = (255, 0, 0)
+        Image.fromarray(arr).save(root / "images" / f"i{i}.png")
+    (root / "classes.txt").write_text("square\n")
+    (root / "label.csv").write_text("\n".join(
+        ["image_file,class_name,cy,cx,h,w"] + [f"i{i}.png,square,20,20,20,20" for i in range(6)])
+        + "\n")
+    model = {"main_group": "m", "groups": {"m": [
+        {"name": "input", "kind": "Input", "shape": ["_", 3, 32, 32]},
+        {"kind": "ConvBn2D", "c": 8, "k": 3, "s": 2},
+        {"kind": "ConvBn2D", "c": 12, "k": 3, "s": 2},
+        {"name": "head", "kind": "ConvBn2D", "c": 6, "k": 1, "act": "linear",
+         "bn": {"enabled": False}},
+        {"name": "det", "kind": "Detect2D", "classes": 1, "anchors": [[0.4, 0.4]]},
+        {"name": "output", "kind": "MergeDetect2D", "from": ["det"]},
+    ]}}
+    (root / "model.json5").write_text(json.dumps(model))
+    config = {
+        "version": "0.1.0",
+        "model": {"kind": "NewslabV1", "cfg_file": "model.json5"},
+        "dataset": {"kind": {"type": "Csv", "image_size": 32, "input_channels": 3,
+                             "image_dir": str(root / "images"),
+                             "label_file": str(root / "label.csv"),
+                             "classes_file": str(root / "classes.txt")}},
+        "logging": {"dir": str(root / "logs")},
+        "preprocessor": {
+            "mixup": {"mosaic_prob": 0.5, "mosaic_margin": 0.3},
+            "color_jitter": {"hue_shift": 0.05, "saturation_shift": 0.1, "value_shift": 0.1},
+            "cleanse": {"out_of_bound_tolerance": 5, "min_bbox_size": 0.01},
+        },
+        "training": {
+            "batch_size": 2,
+            "device_config": {"type": "SingleDevice", "device": "cuda:0"},
+            "optimizer": {"momentum": 0.9, "weight_decay": 0.0005,
+                          "lr_schedule": {"type": "StepWise",
+                                          "steps": [[0, 0.005], [100, 0.001]]}},
+            "loss": {"box_metric": "DIoU"},
+            "load_checkpoint": {"type": "Disabled"},
+            **training,
+        },
+        "benchmark": {"nms_iou_thresh": 0.5, "nms_conf_thresh": 0.4},
+    }
+    path = root / "train.json5"
+    path.write_text(json.dumps(config))
+    return str(path)
+
+
+def run_main(module, config, *args):
+    """``module.main`` in this process; its signal handlers are put back."""
+    import signal
+
+    saved = {s: signal.getsignal(s) for s in (signal.SIGINT, signal.SIGTERM)}
+    try:
+        return module.main(["--config-file", config, *args])
+    finally:
+        for s, handler in saved.items():
+            signal.signal(s, handler)

@@ -57,7 +57,6 @@ ERRORS = {
     "no_device": ("eval_main", "detect.json5", None, "no CUDA device is available"),
     "artifact": ("serve_main", "detect.json5", ["--artifact", "x"], "ROADMAP A11c"),
     "devices": ("detect_main", "detect.json5", ["--devices", "2"], "ROADMAP A14"),
-    "newslab_kinds": ("eval_main", "newslab.json5", [], "ROADMAP A2"),
 }
 
 
@@ -94,6 +93,20 @@ def test_error_exits_1_with_one_error_line(name, error_runs):
     assert len(lines) == 1, stderr
     assert ERRORS[name][3] in lines[0], stderr
     assert "Traceback" not in stderr
+
+
+def test_newslab_config_evaluates(workspace):
+    """cfg/train.json5's NEWSLAB model, whose node kinds once ended eval_main
+    with an error line naming ROADMAP A2, now evaluates: exit 0 and the
+    report line."""
+    root = workspace[0]
+    res = subprocess.run(
+        [sys.executable, "-m", "yolodl_torch.cli.eval_main", "--config-file",
+         os.path.join(root, "newslab.json5"), "--device", "cpu"],
+        capture_output=True, text=True, env=env(), cwd=REPO, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    report = json.loads(res.stdout.strip().splitlines()[-1])
+    assert report["images"] == 4 and report["ground_truths"] == 4
 
 
 def test_serve_main_answers_and_stops_on_sigint(workspace):

@@ -1,0 +1,102 @@
+"""``yolodl_torch.cli.train_main`` against ``yolodl_tpu.cli.train_main``.
+
+Both CLIs run in this process (``--device cpu`` for the port) on the
+``tests/test_cli.py``-style workspace: a CSV set of 48² PNGs with a red
+square, a three-conv NEWSLAB model at 32², mosaic and colour jitter on,
+ordered records.  The reference first trains one step from its own init
+and writes a checkpoint with optimizer state; both CLIs then start from
+that checkpoint (``FromFile``), see the same batches (the streams are
+bit-identical, ``test_torch_pipeline.py``) and take three steps.
+
+Tolerances: the logged ``loss/total_loss`` of each of the three steps
+within rel 1e-4 (f32 forward and backward in another order; the Adam
+moments restored from the checkpoint keep the updates from amplifying
+rounding as a first step would); the two runs' last checkpoints hold the
+same entries with the same dtypes and shapes.  Also here: the multi-scale
+resize against ``jax.image.resize`` and the branches that raise naming
+their ROADMAP item.
+"""
+
+import glob
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import run_main as run
+from _torch_parity import write_train_workspace as write_workspace
+from yolodl_tpu.cli import train_main as j_train
+from yolodl_torch.cli import train_main as t_train
+
+torch.set_num_threads(2)
+
+
+def logged(logs_dir, tag="loss/total_loss"):
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    (run_dir,) = glob.glob(os.path.join(logs_dir, "*"))
+    acc = EventAccumulator(run_dir, size_guidance={"scalars": 0})
+    acc.Reload()
+    return [(e.step, e.value) for e in acc.Scalars(tag)], run_dir
+
+
+def last_checkpoint(run_dir):
+    with np.load(sorted(glob.glob(os.path.join(run_dir, "checkpoints", "*.ckpt")))[-1]) as f:
+        return {k: (f[k].dtype, f[k].shape) for k in f.files if k != "__meta__"}
+
+
+def test_port_cli_matches_reference_cli_from_one_checkpoint(tmp_path, monkeypatch, capsys):
+    monkeypatch.setenv("YDL_NO_NATIVE_DECODE", "1")  # both decode with PIL
+    first = write_workspace(tmp_path / "first")
+    run(j_train, first, "--max-steps", "1")
+    (ckpt,) = glob.glob(str(tmp_path / "first" / "logs" / "*" / "checkpoints" / "*.ckpt"))
+    results = {}
+    for name, module, extra in (("ref", j_train, ()), ("port", t_train, ("--device", "cpu"))):
+        config = write_workspace(tmp_path / name, load_checkpoint={
+            "type": "FromFile", "file": ckpt})
+        run(module, config, "--max-steps", "4", *extra)
+        assert "restored checkpoint at step 1" in capsys.readouterr().out
+        results[name] = logged(str(tmp_path / name / "logs"))
+    (ref, ref_dir), (port, port_dir) = results["ref"], results["port"]
+    assert [s for s, _ in port] == [s for s, _ in ref] == [2, 3, 4]
+    np.testing.assert_allclose([v for _, v in port], [v for _, v in ref], rtol=1e-4)
+    assert last_checkpoint(port_dir) == last_checkpoint(ref_dir)
+    assert any(k.startswith("opt/0/0/.mu/") for k in last_checkpoint(port_dir))
+    assert os.path.exists(os.path.join(port_dir, "train.json5"))
+
+
+@pytest.mark.parametrize("src,dst", [(32, 24), (32, 13), (24, 40), (17, 32)])
+def test_multi_scale_resize_matches_jax_image_resize(src, dst):
+    """jax.image.resize "bilinear" antialiases when it shrinks; so does the
+    port's F.interpolate(antialias=True).  rtol 1e-5, atol 1e-6."""
+    x = np.random.default_rng(src * dst).uniform(0, 1, (2, 3, src, src)).astype(np.float32)
+    ref = jax.image.resize(jnp.asarray(x), (2, 3, dst, dst), "bilinear")
+    out = t_train.resize_images(torch.from_numpy(x), dst)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("training,item", [
+    ({"loss": {"impl": "Darknet"}}, "ROADMAP A9"),
+    ({"device_config": {"type": "MultiDevice", "devices": ["cuda:0", "cuda:1"]}},
+     "ROADMAP A14"),
+    ({"device_config": {"type": "MultiDevice", "devices": ["cuda:0", "cuda:1"]},
+      "tensor_parallel": 2}, "ROADMAP A14"),
+])
+def test_unported_branches_name_their_item(tmp_path, training, item):
+    config = write_workspace(tmp_path, **training)
+    with pytest.raises((NotImplementedError, SystemExit), match=item):
+        run(t_train, config, "--max-steps", "1", "--device", "cpu")
+
+
+def test_device_augmentation_names_a13(tmp_path):
+    config = write_workspace(tmp_path)
+    raw = json.loads(open(config).read())
+    raw["preprocessor"]["pipeline"] = {"device": "tpu"}
+    with open(config, "w") as f:
+        json.dump(raw, f)
+    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+        run(t_train, config, "--max-steps", "1", "--device", "cpu")

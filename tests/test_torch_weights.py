@@ -142,8 +142,11 @@ def test_reference_checkpoint_loads_into_port(trees, tmp_path):
     assert meta == {"step": 12, "loss": 0.5, "has_opt": True, "has_ema": True, "extra": {"k": 1}}
     params_from_jax(p, s, model=model)
     assert_state_dict_equal(model.state_dict(), params_from_jax(params, state))
-    with pytest.raises(NotImplementedError, match="A11b"):
-        t_ckpt.load_checkpoint(path, tp, ts, opt_template=tp)
+    # with a template, the optimizer state is read too
+    _, _, opt_out, _ = t_ckpt.load_checkpoint(
+        path, tp, ts, opt_template={"mu": tp, "count": np.zeros((), np.int32)})
+    assert_trees_equal(opt_out["mu"], params)
+    assert opt_out["count"].dtype == np.int32 and int(opt_out["count"]) == 3
 
 
 def test_port_checkpoint_loads_into_reference(trees, tmp_path):
@@ -174,8 +177,14 @@ def test_port_checkpoint_loads_into_reference(trees, tmp_path):
         for k in a.files:
             assert a[k].dtype == b[k].dtype
             np.testing.assert_array_equal(a[k], b[k])
-    with pytest.raises(NotImplementedError, match="A11b"):
-        t_ckpt.save_checkpoint(str(tmp_path), 1, 0.0, tp, ts, opt_state={"mu": tp})
+    # optimizer state written by the port is read by the reference
+    opt_path = t_ckpt.save_checkpoint(str(tmp_path / "opt"), 2, 0.0, tp, ts,
+                                      opt_state={"mu": tp, "count": np.asarray(2, np.int32)})
+    _, _, opt_out, meta = j_ckpt.load_checkpoint(
+        opt_path, jp0, js0, {"mu": jp0, "count": np.zeros((), np.int32)})
+    assert meta["has_opt"]
+    assert_trees_equal(jax.tree_util.tree_map(np.asarray, opt_out["mu"]), params)
+    assert int(opt_out["count"]) == 2
 
 
 def test_partial_checkpoint_load(trees, tmp_path):
@@ -234,8 +243,16 @@ def test_load_recent_and_async_checkpointer(trees, tmp_path):
     assert_trees_equal(p, params)
     assert_trees_equal(meta["ema"], ema)
     assert t_ckpt.load_recent_checkpoint(str(tmp_path / "empty"), tp, ts) is None
-    with pytest.raises(NotImplementedError, match="A11b"):
-        ckpt.save(str(tmp_path), 1, 0.0, tp, ts, opt_state={})
+    # the optimizer state is snapshotted on the caller too
+    moment = torch.from_numpy(params["layer0"]["w"].copy())
+    ckpt.save(str(tmp_path / "logs" / "r2" / "checkpoints"), 4, 0.5, tp, ts,
+              opt_state={"mu": {"layer0": {"w": moment}}})
+    moment.add_(1.0)
+    ckpt.flush()
+    _, _, opt_out, meta = t_ckpt.load_recent_checkpoint_in_runs(
+        str(tmp_path / "logs"), tp, ts, {"mu": {"layer0": {"w": tp["layer0"]["w"]}}})
+    assert meta["step"] == 4 and meta["has_opt"]
+    np.testing.assert_array_equal(opt_out["mu"]["layer0"]["w"], params["layer0"]["w"])
     # a failed write surfaces at the next flush
     (tmp_path / "a_file").write_text("")
     bad = t_ckpt.AsyncCheckpointer()

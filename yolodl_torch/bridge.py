@@ -3,10 +3,15 @@
 The reference keeps parameters as ``{path: {"w": HWIO, "b"?, "bn":
 {"scale", "bias"}}}`` and BN state as ``{path: {"bn": {"mean", "var"}}}``
 (yolodl_tpu ops/conv.py:62-74, ops/norm.py:32-44), with numpy or JAX arrays
-as leaves.  The port's ``state_dict`` names the same tensors
-``layers.<path>.w`` (OIHW), ``layers.<path>.b``, ``layers.<path>.bn.scale``
-… ``layers.<path>.bn.var``.  Only numpy crosses the boundary, so this
-module needs nothing of JAX.
+as leaves.  A DarkCsp2D or SppCsp2D block nests one such entry per sub-conv
+(``{path: {"skip_conv": {"w", "bn"}, …}}``, ops/blocks.py).  The port's
+``state_dict`` names the same tensors ``layers.<path>.w`` (OIHW),
+``layers.<path>.b``, ``layers.<path>.bn.scale`` … ``layers.<path>.bn.var``,
+and ``layers.<path>.<sub>.w`` … inside a block.  Every kernel, a
+DeconvBn2D's included, crosses as ``permute(3, 2, 0, 1)`` of the HWIO
+array: the port keeps a deconv kernel ``[out, in, k, k]`` and hands
+``F.conv_transpose2d`` its ``transpose(0, 1)`` (ops/conv.py).  Only numpy
+crosses the boundary, so this module needs nothing of JAX.
 """
 
 from __future__ import annotations
@@ -18,9 +23,29 @@ import torch
 
 from .models.builder import module_key
 
+_BN_PARAMS = ("scale", "bias")
+_BN_STATE = ("mean", "var")
+
 
 def _path_of(key: str) -> str:
     return key.replace("/", ".")
+
+
+def _kernel_to_torch(w) -> torch.Tensor:
+    return torch.from_numpy(np.array(w, np.float32)).permute(3, 2, 0, 1).contiguous()
+
+
+def _kernel_to_jax(w: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(w.transpose(2, 3, 1, 0))
+
+
+def _leaves(tree: Dict, prefix: str):
+    """(state_dict key, leaf name, value) of every leaf under ``prefix``."""
+    for name, value in tree.items():
+        if isinstance(value, dict):
+            yield from _leaves(value, f"{prefix}.{name}")
+        else:
+            yield f"{prefix}.{name}", name, value
 
 
 def params_from_jax(params: Dict, state: Dict, model: Optional[torch.nn.Module] = None
@@ -33,18 +58,11 @@ def params_from_jax(params: Dict, state: Dict, model: Optional[torch.nn.Module] 
     every entry of the model's ``state_dict`` must be given: two trainers
     can then start from the same weights and running statistics."""
     sd: Dict[str, torch.Tensor] = {}
-    for path, p in params.items():
-        prefix = f"layers.{module_key(path)}"
-        w = torch.from_numpy(np.array(p["w"], np.float32))
-        sd[f"{prefix}.w"] = w.permute(3, 2, 0, 1).contiguous()
-        if "b" in p:
-            sd[f"{prefix}.b"] = torch.from_numpy(np.array(p["b"], np.float32))
-        for name, value in p.get("bn", {}).items():
-            sd[f"{prefix}.bn.{name}"] = torch.from_numpy(np.array(value, np.float32))
-    for path, s in state.items():
-        prefix = f"layers.{module_key(path)}"
-        for name, value in s.get("bn", {}).items():
-            sd[f"{prefix}.bn.{name}"] = torch.from_numpy(np.array(value, np.float32))
+    for tree in (params, state):
+        for path, node in tree.items():
+            for key, name, value in _leaves(node, f"layers.{module_key(path)}"):
+                sd[key] = (_kernel_to_torch(value) if name == "w"
+                           else torch.from_numpy(np.array(value, np.float32)))
     if model is not None:
         target = model.state_dict()
         if set(target) != set(sd):
@@ -69,15 +87,18 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Tuple[Dict, Dict]:
         parts = key[len("layers."):].split(".")
         path, leaf = _path_of(parts[0]), parts[1:]
         value = t.detach().to("cpu", torch.float32).numpy()
-        if leaf == ["w"]:
-            params.setdefault(path, {})["w"] = np.ascontiguousarray(
-                value.transpose(2, 3, 1, 0))
-        elif leaf == ["b"]:
-            params.setdefault(path, {})["b"] = value
-        elif leaf[0] == "bn" and leaf[1] in ("scale", "bias"):
-            params.setdefault(path, {}).setdefault("bn", {})[leaf[1]] = value
-        elif leaf[0] == "bn" and leaf[1] in ("mean", "var"):
-            state.setdefault(path, {}).setdefault("bn", {})[leaf[1]] = value
+        # a leaf is w, b or bn/<name>, behind at most one sub-conv name
+        sub, tail = (leaf[:1], leaf[1:]) if leaf[0] not in ("w", "b", "bn") else ([], leaf)
+        if tail == ["w"]:
+            tree, value = params, _kernel_to_jax(value)
+        elif tail == ["b"] or (len(tail) == 2 and tail[0] == "bn" and tail[1] in _BN_PARAMS):
+            tree = params
+        elif len(tail) == 2 and tail[0] == "bn" and tail[1] in _BN_STATE:
+            tree = state
         else:
             raise KeyError(f"unexpected state_dict entry {key!r}")
+        node = tree.setdefault(path, {})
+        for name in sub + tail[:-1]:
+            node = node.setdefault(name, {})
+        node[tail[-1]] = value
     return params, state

@@ -1,0 +1,713 @@
+"""Training CLI: ``python -m yolodl_torch.cli.train_main --config-file train.json5``.
+
+Counterpart of ``yolodl_tpu/cli/train_main.py`` (the reference ``train``
+crate, train/src/main.rs) on one device, with its flags (``--config-file``,
+``--max-steps``, ``--profile-dir``) plus ``--device`` (default ``cuda``;
+``cpu`` runs on the CPU): load the versioned JSON5 config, create a
+timestamped run dir with a config copy (:34-51), start the data pipeline
+and the logging worker, train, checkpoint every N steps with the optimizer
+state, abort on a non-finite loss (multi_gpu.rs:198-204), and on SIGINT or
+SIGTERM save a checkpoint at the next step boundary and exit.
+
+In-training inference (``logging.enable_inference``) and the periodic
+evaluation (``evaluation.interval``) run NMS, so on a card they launch B1's
+two kernels (``kernels/iou.py``): once each per inference image and once
+each per evaluation batch.  ``--profile-dir`` writes a ``torch.profiler``
+trace of steps 5-10 there.
+
+Not ported, each raising ``NotImplementedError`` naming its ROADMAP item:
+``training.loss.impl Darknet`` (A9), ``preprocessor.pipeline.device "tpu"``
+(A13), and several devices, MultiProcess, tensor/pipeline parallelism and
+ZeRO (A14).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import shutil
+import sys
+import time
+
+
+def _resolve_auto_loss_options(config, graph):
+    """Resolve the "auto" loss options from the darknet model cfg: adopt
+    the per-[yolo]-layer ignore_thresh, iou_thresh (multi-anchor match
+    gate), objectness_smooth, and max_delta values (darknet-config
+    yolo.rs:15-49 surface) so darknet cfgs train with darknet's
+    objectness masking / multi-positive matching / delta clamping out of
+    the box.  NEWSLABv1 models (no [yolo] sections) resolve to disabled —
+    the Rust reference's behavior.  A uniform per-layer set collapses to
+    a scalar; mixed values stay a per-head tuple (loss/yolo_loss.py maps
+    them per flat range).  truth_thresh < 1 (darknet's per-cell
+    best-IoU-overwrite branch) is not implemented in the production loss —
+    warn loudly instead of silently diverging (all 83 corpus cfgs carry
+    truth_thresh=1, where it is a no-op)."""
+    import dataclasses as _dc
+
+    loss = config.loss
+    tt = getattr(graph, "detect_truth_thresh", None)
+    if tt and any(t < 1.0 for t in tt):
+        print(f"warning: model cfg truth_thresh={tt} < 1 is not "
+              "implemented; training without the multi-positive branch")
+
+    def _adopt(field, attr, collapse=True):
+        vals = getattr(graph, attr, None)
+        if not vals or all(v is None for v in vals):
+            new = None
+        elif collapse and len(set(vals)) == 1:
+            new = vals[0]
+        else:
+            new = tuple(vals)
+        if new is not None and new != 1.0 and new is not False:
+            print(f"loss.{field}: auto -> {new} (from the model cfg)")
+        return new
+
+    updates = {}
+    if loss.ignore_thresh == "auto":
+        updates["ignore_thresh"] = _adopt("ignore_thresh",
+                                          "detect_ignore_thresh")
+    if loss.iou_thresh == "auto":
+        # per-head iou_thresh values of 1.0 are no-ops — collapse to None
+        # when every head carries the default
+        v = _adopt("iou_thresh", "detect_iou_thresh")
+        if isinstance(v, float) and v >= 1.0:
+            v = None
+        updates["iou_thresh"] = v
+    if loss.objectness_smooth == "auto":
+        vals = getattr(graph, "detect_objectness_smooth", None)
+        new = bool(vals and any(vals))
+        if new:
+            print("loss.objectness_smooth: auto -> True (from the model cfg)")
+        updates["objectness_smooth"] = new
+    if loss.max_delta == "auto":
+        updates["max_delta"] = _adopt("max_delta", "detect_max_delta")
+    if not updates:
+        return config
+    return _dc.replace(config, loss=_dc.replace(loss, **updates))
+
+
+def _not_ported_parallelism(config) -> None:
+    """The reference's multi-device branches (train_main.py:103-127,
+    :422-489): ROADMAP A14."""
+    what = None
+    if config.multi_process is not None:
+        what = "device_config MultiProcess"
+    elif config.n_devices > 1:
+        what = f"{config.n_devices} devices"
+    elif config.tensor_parallel > 1:
+        what = f"training.tensor_parallel {config.tensor_parallel}"
+    elif config.pipeline_parallel > 1:
+        what = f"training.pipeline_parallel {config.pipeline_parallel}"
+    if what is not None:
+        raise NotImplementedError(
+            f"{what}: multi-device training is not ported to yolodl_torch yet "
+            "(ROADMAP A14); train on one device")
+
+
+def resize_images(images, size: int):
+    """``jax.image.resize(images, (b, c, size, size), "bilinear")`` in
+    PyTorch: half-pixel centres, and a triangle filter widened by the
+    scale when shrinking (antialias), as jax.image does."""
+    import torch.nn.functional as F
+
+    return F.interpolate(images, size=(size, size), mode="bilinear",
+                         align_corners=False, antialias=True)
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="yolodl_torch trainer")
+    parser.add_argument("--config-file", required=True)
+    parser.add_argument("--max-steps", type=int, default=0,
+                        help="stop after N steps (0 = run forever)")
+    parser.add_argument("--profile-dir", default="",
+                        help="write a torch.profiler trace of steps 5-10 "
+                             "into this directory")
+    parser.add_argument("--process-id", type=int, default=-1,
+                        help="a MultiProcess rank (not ported: ROADMAP A14)")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default; raises without a card) or cpu")
+    args = parser.parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    from .._device import resolve_device
+    from ..bridge import params_from_jax, params_to_jax
+    from ..config.app_config import TrainAppConfig
+    from ..data.cache import FileCache, MemoryCache, make_decode_loader
+    from ..data.datasets import SanitizedDataset
+    from ..data.mosaic import MosaicMixer
+    from ..data.pipeline import TrainingStream, TrainingStreamConfig, device_prefetch
+    from ..graph import Graph
+    from ..graph.from_darknet import load_darknet_graph
+    from ..models import YoloModel
+    from ..train import TrainConfig, make_train_step, train_init
+    from ..train.checkpoint import (AsyncCheckpointer, load_checkpoint,
+                                    load_recent_checkpoint_in_runs)
+    from ..train.ema import ema_init
+    from ..train.logging import LoggingWorker
+    from ..train.loop import load_optimizer_state_tree, optimizer_state_tree
+    from ..train.lr_schedule import lr_at_step
+    from ..utils.timing import RateCounter
+
+    config = TrainAppConfig.load(args.config_file)
+    base_dir = os.path.dirname(os.path.abspath(args.config_file))
+    _not_ported_parallelism(config)
+    device = resolve_device(args.device)
+
+    # timestamped run dir + config copy (main.rs:34-51)
+    stamp = time.strftime("%Y-%m-%d-%H-%M-%S")
+    run_dir = os.path.join(config.logging.dir, stamp)
+    # the stamp has second resolution: two runs in the same second must not
+    # share a dir (interleaved checkpoints would poison FromRecent resume)
+    dedupe = 1
+    while True:
+        try:
+            os.makedirs(run_dir)
+            break
+        except FileExistsError:
+            dedupe += 1
+            run_dir = os.path.join(config.logging.dir, f"{stamp}.{dedupe}")
+    shutil.copy(args.config_file, os.path.join(run_dir, "train.json5"))
+    ckpt_dir = os.path.join(run_dir, "checkpoints")
+
+    # model
+    model_path = os.path.join(base_dir, config.model_file)
+    if config.model_kind == "darknet":
+        graph = load_darknet_graph(model_path)
+    else:
+        graph = Graph.load_newslab_v1_json(model_path)
+    if config.freeze or config.freeze_through:
+        # frozen-layer fine-tuning: merge with any cfg-level stopbackward
+        frozen = set(graph.stop_gradient_paths)
+        for p in config.freeze:
+            try:
+                graph.resolve_path(p)
+            except ValueError as e:
+                raise SystemExit(f"training.freeze: {e}")
+            frozen.add(p)
+        if config.freeze_through:
+            try:
+                frozen |= graph.ancestor_paths(config.freeze_through)
+            except ValueError as e:
+                raise SystemExit(f"training.freeze_through: {e}")
+        graph.stop_gradient_paths = frozenset(frozen)
+        print(f"freezing {len(frozen)} node(s): "
+              + ", ".join(sorted(frozen)[:8])
+              + (" ..." if len(frozen) > 8 else ""))
+    config = _resolve_auto_loss_options(config, graph)
+    # seed 0, as the reference's train_init(seed=0)
+    model = YoloModel(graph, device=device, generator=torch.Generator().manual_seed(0),
+                      remat="blocks" if config.remat else "off")
+
+    # lr_schedule {type: FromModelCfg}: adopt the darknet [net] policy
+    if config.lr.kind == "from_model_cfg":
+        if config.model_kind != "darknet":
+            raise SystemExit(
+                "optimizer.lr_schedule FromModelCfg needs a darknet model "
+                "cfg (NEWSLABv1 models carry no [net] policy)")
+        import dataclasses as _dc
+
+        from ..config import darknet_cfg as _dk
+        from ..train.lr_schedule import lr_schedule_from_darknet
+
+        config = _dc.replace(
+            config, lr=lr_schedule_from_darknet(_dk.Darknet.load(model_path).net))
+
+    # preprocessor.from_model_cfg: adopt the darknet cfg's data recipe
+    if config.preprocessor.from_model_cfg:
+        if config.model_kind != "darknet":
+            raise SystemExit(
+                "preprocessor.from_model_cfg needs a darknet model cfg "
+                "(NEWSLABv1 models carry no [net]/[yolo] aug knobs)")
+        from ..config import darknet_cfg as _dk2
+        from ..config.app_config import adopt_darknet_data_recipe
+
+        config = adopt_darknet_data_recipe(config, _dk2.Darknet.load(model_path))
+        pre2 = config.preprocessor
+        print(
+            f"data recipe from model cfg: mosaic_prob={pre2.mosaic_prob}, "
+            f"color_jitter={pre2.color_jitter}, affine={pre2.affine}, "
+            f"multi_scale={list(config.multi_scale_sizes) or None}")
+
+    # dataset + pipeline; one cache_dir, resolved against the config-file dir
+    pre = config.preprocessor
+    cache_dir = (
+        os.path.join(base_dir, pre.cache_dir)
+        if pre.cache_dir and not os.path.isabs(pre.cache_dir)
+        else pre.cache_dir
+    )
+    records_cache_dir = cache_dir if pre.cache_records else ""
+    dataset = SanitizedDataset(
+        config.dataset.open(base_dir, records_cache_dir=records_cache_dir),
+        out_of_bound_tolerance=config.preprocessor.out_of_bound_tolerance,
+        min_bbox_size=config.preprocessor.min_bbox_size,
+    )
+    size = config.dataset.image_size
+    if pre.cache_method == "file":
+        loader = FileCache(cache_dir or os.path.join(run_dir, "cache"),
+                           (size, size), dtype=pre.cache_dtype)
+    elif pre.cache_method == "tfrecord":
+        from ..data.tfrecord_cache import TfrecordCache
+
+        loader = TfrecordCache(cache_dir or os.path.join(run_dir, "cache"), (size, size))
+    elif pre.cache_method == "memory":
+        loader = MemoryCache((size, size))
+    else:
+        loader = make_decode_loader((size, size))
+    records = dataset.records()
+    if pre.pipeline_device == "tpu":
+        # the reference keeps the CPU pipeline, with these warnings, where
+        # its device augmentation cannot run; elsewhere it would defer
+        if config.steps_per_call > 1 and not config.multi_scale_sizes:
+            print("warning: preprocessor.pipeline.device='tpu' requires "
+                  "single-process, non-scanned training; using the CPU "
+                  "pipeline", file=sys.stderr)
+        elif config.logging.enable_images:
+            print("warning: logging.enable_images needs host-side pipeline "
+                  "stages for debug images; using the CPU pipeline instead "
+                  "of pipeline.device='tpu'", file=sys.stderr)
+        else:
+            raise NotImplementedError(
+                "preprocessor.pipeline.device 'tpu' (device augmentation) is not "
+                "ported to yolodl_torch yet (ROADMAP A13); use 'cpu'")
+    stream_cfg = TrainingStreamConfig(
+        batch_size=config.batch_size,
+        seed=0,
+        mosaic_prob=pre.mosaic_prob,
+        mixup_prob=pre.mixup_prob,
+        cutmix_prob=pre.cutmix_prob,
+        mosaic=MosaicMixer(mosaic_margin=pre.mosaic_margin),
+        color_jitter=pre.color_jitter,
+        color_jitter_prob=pre.color_jitter_prob,
+        random_affine=pre.affine,
+        affine_prob=pre.affine_prob,
+        bbox_scaling=pre.bbox_scaling,
+        workers=pre.workers,
+        ordered=not pre.unordered,
+    )
+    stream = TrainingStream(records, loader, stream_cfg)
+
+    logger_holder = {}
+    current_step = {"n": 0}  # host-side optimizer step, for telemetry tags
+    if config.logging.enable_images:
+        # per-stage debug images with boxes (logging.rs:428-500 taxonomy)
+        from ..train.logging import draw_boxes_on_image
+
+        debug_counter = {"n": 0}
+
+        def debug_hook(stage, rec):
+            lg = logger_holder.get("logger")
+            sampled = debug_counter["n"] % 50 == 0
+            debug_counter["n"] += 1
+            if lg is None or not sampled:
+                return
+            boxes = rec.boxes
+            if len(boxes):
+                cy, cx, h, w = (boxes[:, k] for k in range(4))
+                tlbr = np.stack([cy - h / 2, cx - w / 2, cy + h / 2, cx + w / 2], -1)
+                canvas = draw_boxes_on_image(rec.image, tlbr)
+            else:
+                canvas = rec.image
+            # tag with the optimizer step (approximate: the hook runs on
+            # pipeline threads ahead of the trainer)
+            lg.log_image(current_step["n"], f"pipeline/{stage}", canvas)
+
+        stream_cfg.debug_hook = debug_hook
+
+    if config.loss_impl not in ("production", "darknet"):
+        raise SystemExit(
+            f"unknown training.loss.impl {config.loss_impl!r} "
+            "(expected Production or Darknet)")
+    if config.loss_impl == "darknet":
+        raise NotImplementedError(
+            "training.loss.impl Darknet (the darknet-exact loss) is not ported "
+            "to yolodl_torch yet (ROADMAP A9)")
+
+    # trainer
+    train_cfg = TrainConfig(
+        lr=config.lr, optimizer=config.optimizer,
+        momentum=config.momentum, weight_decay=config.weight_decay,
+        loss=config.loss,
+        use_ema=config.use_ema, ema_decay=config.ema_decay,
+        benchmark_confidence=(
+            config.nms_conf_thresh if config.logging.enable_benchmark else None
+        ),
+        log_weights_and_grads=config.logging.enable_gradients,
+        return_obj_sample=config.logging.enable_images,
+        debug_stat=config.logging.enable_debug_stat,
+        compute_dtype={"float32": None}.get(config.precision, config.precision),
+    )
+    if config.zero_optimizer:
+        print("zero_optimizer requires a MultiDevice config; ignoring "
+              "(optimizer-state sharding is a no-op on one device)")
+    ts, optimizer = train_init(model, train_cfg)
+
+    def host_trees():
+        """(params, state, opt, ema) as the reference's trees, on the host."""
+        params, state = params_to_jax(model.state_dict())
+        ema = params_to_jax(ts.ema_params)[0] if ts.ema_params is not None else None
+        return params, state, optimizer_state_tree(ts, train_cfg), ema
+
+    # checkpoint restore (utils/checkpoint.rs:24-81 semantics)
+    restored = None
+    if config.checkpoint.mode in ("from_recent", "from_file"):
+        params_t, state_t, opt_t, _ = host_trees()
+        if config.checkpoint.mode == "from_recent":
+            # scan prior runs under the logging dir, not this run's empty dir
+            restored = load_recent_checkpoint_in_runs(
+                config.logging.dir, params_t, state_t, opt_t)
+        else:
+            restored = load_checkpoint(
+                os.path.join(base_dir, config.checkpoint.file), params_t, state_t, opt_t)
+    if restored is not None:
+        params, state, opt_state, meta = restored
+        params_from_jax(params, state, model=model)
+        if opt_state is not None:
+            ts.step = int(meta["step"])
+            load_optimizer_state_tree(ts, train_cfg, opt_state)
+        ts.step = int(meta["step"])
+        # restored EMA (if present) continues accumulating; otherwise the
+        # EMA shadow restarts from the restored params
+        if ts.ema_params is not None:
+            if meta.get("ema") is not None:
+                ema = params_from_jax(meta["ema"], {})
+                ts.ema_params = {k: ema[k].to(device) for k in ts.ema_params}
+            else:
+                ts.ema_params = ema_init(dict(model.named_parameters()))
+        print(f"restored checkpoint at step {meta['step']}")
+    if config.override_initial_step is not None:
+        ts.step = int(config.override_initial_step)
+
+    # exact-resume data order: a FromRecent restore continues THIS run's
+    # data stream (per-slot RNG keys make the skip bitwise-faithful)
+    if restored is not None and config.checkpoint.mode == "from_recent":
+        stream_cfg.start_records = int(restored[3]["step"]) * config.batch_size
+        if stream_cfg.start_records:
+            print(f"data stream resumed at record {stream_cfg.start_records}")
+
+    accum = config.accumulation_steps
+    step_fn = make_train_step(model, optimizer, train_cfg, accum=accum)
+
+    logger = LoggingWorker(run_dir).start()
+    logger_holder["logger"] = logger if config.logging.enable_images else None
+    last_batch = {"images": None, "infos": None}
+
+    # in-training inference visualization (logging.enable_inference,
+    # multi_gpu.rs:239-261, logging.rs:379-422), with the model cfg's
+    # nms_kind + beta_nms like the detect CLI
+    nms_kind, nms_beta = "greedy", 0.6
+    if config.model_kind == "darknet":
+        from ..config import darknet_cfg as dk
+        from ..loss.nms import nms_options_from_darknet
+
+        nms_kind, nms_beta = nms_options_from_darknet(dk.Darknet.load(model_path))
+
+    infer_one = None
+    if config.logging.enable_inference:
+        from ..loss import non_max_suppression, to_host_detections, yolo_inference
+        from ..train.logging import draw_boxes_on_image as _draw
+
+        _palette = [
+            (1.0, 0.2, 0.2), (0.2, 1.0, 0.2), (0.2, 0.4, 1.0),
+            (1.0, 0.6, 0.1), (0.8, 0.2, 1.0), (0.1, 0.9, 0.9),
+        ]
+
+        def infer_one(step, image_chw, gt_boxes, gt_mask):
+            """Run inference on one training image and log the overlay:
+            GT yellow, predictions per-class colors (detect-CLI taxonomy)."""
+            with torch.no_grad():
+                pred = model(torch.from_numpy(np.asarray(image_chw)[None]).to(device))
+                nms = non_max_suppression(
+                    pred,
+                    iou_threshold=config.nms_iou_thresh,
+                    confidence_threshold=config.nms_conf_thresh,
+                    suppress_by_class=False,
+                    class_mode="argmax",
+                    kind=nms_kind,
+                    beta=nms_beta,
+                )
+                dets = to_host_detections(yolo_inference(nms, pred.num_flats))[0]
+            canvas = np.asarray(image_chw, np.float32)
+            gt = np.asarray(gt_boxes)[np.asarray(gt_mask)]
+            if len(gt):
+                cy, cx, h, w = (gt[:, k] for k in range(4))
+                gt_tlbr = np.stack(
+                    [cy - h / 2, cx - w / 2, cy + h / 2, cx + w / 2], -1)
+                canvas = _draw(canvas, gt_tlbr, color=(1.0, 1.0, 0.0))
+            # one draw call (= one canvas copy) per palette color, not per box
+            by_color = {}
+            for det in dets:
+                by_color.setdefault(det["class"] % len(_palette), []).append(
+                    det["tlbr"])
+            for ci, boxes in by_color.items():
+                canvas = _draw(canvas, np.asarray(boxes), color=_palette[ci])
+            logger.log_image(step, "inference/detections", np.clip(canvas, 0, 1))
+
+    # periodic in-training validation (evaluation.interval)
+    evaluator = None
+    if config.eval_interval:
+        from ..train.evaluation import DatasetEvaluator
+
+        ev_cfg = config.eval_dataset or config.dataset
+        ev_ds = SanitizedDataset(
+            ev_cfg.open(base_dir, records_cache_dir=records_cache_dir),
+            out_of_bound_tolerance=config.preprocessor.out_of_bound_tolerance,
+            min_bbox_size=config.preprocessor.min_bbox_size,
+        )
+        ev_records = ev_ds.records()
+        if config.eval_limit:
+            ev_records = ev_records[: config.eval_limit]
+        ev_size = ev_cfg.image_size
+        evaluator = DatasetEvaluator(
+            model, ev_records, make_decode_loader((ev_size, ev_size)),
+            num_classes=len(ev_ds.classes),
+            batch_size=config.eval_batch_size or config.batch_size,
+            iou_threshold=config.nms_iou_thresh,
+            confidence_threshold=config.eval_conf_thresh,
+            nms_kind=nms_kind,
+            nms_beta=nms_beta,
+            # validation runs at the training precision
+            precision=config.precision,
+        )
+
+    if config.logging.enable_images:
+        # static per-head layout for the objectness heatmap
+        with torch.no_grad():
+            last_batch["infos"] = model(torch.zeros((1, 3, size, size), device=device)).infos
+    batch_rate = RateCounter()
+    record_rate = RateCounter()
+
+    # multi-scale training (darknet random=1): boxes are ratio units, so
+    # rescaling is image-only
+    ms_sizes = list(config.multi_scale_sizes)
+
+    def maybe_rescale(images, step):
+        if not ms_sizes:
+            return images
+        target = ms_sizes[(step // config.multi_scale_interval) % len(ms_sizes)]
+        if images.shape[-1] == target:
+            return images
+        return resize_images(images, target)
+
+    # multi-step calls (training.steps_per_call): K optimizer steps per call
+    # on K stacked batches; incompatible with multi-scale
+    scan_k = config.steps_per_call
+    if scan_k > 1 and ms_sizes:
+        print("steps_per_call > 1 requires single-device, fixed-size "
+              "training; falling back to per-step dispatch")
+        scan_k = 1
+    if scan_k > 1 and args.max_steps and args.max_steps % scan_k:
+        print(f"warning: --max-steps {args.max_steps} is not a multiple of "
+              f"steps_per_call {scan_k}; the run stops at step "
+              f"{-(-args.max_steps // scan_k) * scan_k} (window end)")
+    if scan_k > 1:
+        from ..train import make_multi_step
+
+        step_fn = make_multi_step(model, optimizer, train_cfg, scan_k, accum=accum)
+
+    # graceful preemption: SIGTERM/SIGINT request a checkpoint + clean exit
+    # at the next step boundary; a second signal falls through to the
+    # default handler
+    import signal
+
+    stop_signal = {"num": None}
+
+    def _request_stop(signum, frame):
+        stop_signal["num"] = signum
+        signal.signal(signum, signal.SIG_DFL)
+
+    for _sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(_sig, _request_stop)
+
+    saver = AsyncCheckpointer()
+    best_eval = {"map": -1.0}
+
+    def save_checkpoint(step, total):
+        params, state, opt, ema = host_trees()
+        saver.save(ckpt_dir, step, total, params, state, opt, ema_params=ema)
+
+    def handle_step(step, metrics, index=None, final=True, window=1):
+        """Per-optimizer-step host work: finite check, TB logging, rates,
+        checkpoints.  Returns True when training should stop.  With
+        steps_per_call > 1 only the last step of a window has ``final``:
+        the model then matches ``step``, so checkpoints and stops happen
+        there only."""
+        pick = (lambda v: v[index]) if index is not None else (lambda v: v)
+        total = float(pick(metrics["total_loss"]))
+        if not np.isfinite(total):
+            raise RuntimeError(f"non-finite total loss at step {step}: {total}")
+        if os.environ.get("YOLODL_DEBUG_ASSERT"):
+            # per-term guard (the reference's debug_assert tier)
+            for k, v in metrics.items():
+                val = pick(v)
+                if np.ndim(val) == 0 and not np.isfinite(float(val)):
+                    raise RuntimeError(
+                        f"non-finite metric {k!r} at step {step}")
+        # the schedule is read at the 0-based pre-update count — log the
+        # rate the update used
+        lr = lr_at_step(config.lr, step - 1)
+        bench_keys = ("obj_accuracy", "obj_recall", "obj_precision",
+                      "class_accuracy", "num_matched")
+        wg_keys = [k for k in metrics
+                   if k.startswith(("weights_max/", "grads_max/"))]
+        logger.log_training_output(
+            step, lr,
+            {k: float(pick(v)) for k, v in metrics.items()
+             if k not in bench_keys and k not in wg_keys
+             and k != "obj_sample"},
+            benchmark={k: float(pick(metrics[k])) for k in bench_keys
+                       if k in metrics} or None,
+        )
+        if wg_keys:
+            # per-parameter |w|max / |grad|max (logging.rs:361-376)
+            logger.log_scalars(
+                step, {k: float(pick(metrics[k])) for k in wg_keys})
+        if ("obj_sample" in metrics and (step % 200 == 0 or step == 1)
+                and logger_holder.get("logger") is not None
+                and last_batch.get("infos") is not None):
+            if index is not None and last_batch.get("window"):
+                imgs = last_batch["window"][index]
+            else:
+                imgs = last_batch.get("images")
+            obj = np.asarray(pick(metrics["obj_sample"]), np.float32)
+            # multi-scale steps at a non-base size have another flat layout
+            if imgs is not None and \
+                    obj.shape[0] == last_batch["infos"][-1].flat_end:
+                logger.log_objectness_heatmap(
+                    step, np.asarray(imgs[0]), obj, last_batch["infos"])
+        current_step["n"] = step
+        batch_rate.add(1)
+        record_rate.add(config.batch_size)
+        if step % 10 == 0:
+            print(
+                f"step {step}  loss {total:.5f}  "
+                f"{batch_rate.rate():.2f} batches/s  {record_rate.rate():.1f} records/s"
+            )
+        if not final:
+            return False
+        if (infer_one is not None
+                and (step <= window or step % 200 < window)
+                and last_batch.get("images") is not None
+                and last_batch.get("gt") is not None):
+            imgs = last_batch["images"]
+            gt_boxes, gt_mask = last_batch["gt"]
+            infer_one(step, imgs[0], gt_boxes[0], gt_mask[0])
+        saved = False
+        if (evaluator is not None and (step // config.eval_interval)
+                > ((step - window) // config.eval_interval)):
+            report = evaluator()
+            logger.log_scalars(step, {
+                "val/mAP@0.5": report["mAP@0.5"],
+                "val/mAP@0.5:0.95": report["mAP@0.5:0.95"],
+            })
+            print(f"step {step}  val mAP@0.5 {report['mAP@0.5']:.4f}  "
+                  f"mAP@0.5:0.95 {report['mAP@0.5:0.95']:.4f}")
+            if report["mAP@0.5"] > best_eval["map"]:
+                # keep a checkpoint of the best validation mAP so far and
+                # point best.json at it
+                best_eval["map"] = report["mAP@0.5"]
+                save_checkpoint(step, total)
+                saved = True
+                import json as _json
+
+                with open(os.path.join(run_dir, "best.json"), "w") as bf:
+                    _json.dump({"step": step,
+                                "mAP@0.5": report["mAP@0.5"],
+                                "mAP@0.5:0.95": report["mAP@0.5:0.95"]}, bf)
+        save = config.checkpoint.save_steps
+        if save and not saved and (step // save) > ((step - window) // save):
+            save_checkpoint(step, total)
+            saved = True
+        if args.max_steps and step >= args.max_steps:
+            if not saved:
+                save_checkpoint(step, total)
+            return True
+        if stop_signal["num"] is not None:
+            if not saved:
+                save_checkpoint(step, total)
+            saver.flush()  # raises if the write failed — do not lie below
+            print(f"received signal {stop_signal['num']} — checkpoint saved "
+                  f"at step {step}, exiting")
+            return True
+        return False
+
+    def host_metrics(metrics):
+        """One copy of the step's metrics to the host."""
+        return {k: v.detach().to("cpu", torch.float32).numpy() for k, v in metrics.items()}
+
+    profiler = None
+    profiled = False
+    pending = []
+    host_step = ts.step
+    # multi-step calls stack HOST arrays into one k-step upload
+    if scan_k > 1:
+        source = ((rec, None) for rec in iter(stream))
+    else:
+        source = device_prefetch(iter(stream), device)
+    try:
+        for record, arrays in source:
+            if args.profile_dir and not profiled:
+                # trace ONE steady-state window after warm-up
+                if host_step >= 5 and profiler is None:
+                    activities = [torch.profiler.ProfilerActivity.CPU]
+                    if device.type == "cuda":
+                        activities.append(torch.profiler.ProfilerActivity.CUDA)
+                    profiler = torch.profiler.profile(activities=activities)
+                    profiler.start()
+                elif host_step >= 10 and profiler is not None:
+                    profiler.stop()
+                    os.makedirs(args.profile_dir, exist_ok=True)
+                    profiler.export_chrome_trace(
+                        os.path.join(args.profile_dir, "trace.json"))
+                    profiler, profiled = None, True
+                    print(f"wrote device trace to {args.profile_dir}")
+            if scan_k > 1:
+                pending.append((record.images, record.boxes,
+                                record.classes, record.mask))
+                last_batch["images"] = record.images
+                last_batch["gt"] = (record.boxes, record.mask)
+                if len(pending) < scan_k:
+                    continue
+                stacked = tuple(torch.from_numpy(np.stack(parts)).to(device)
+                                for parts in zip(*pending))
+                last_batch["window"] = [p[0] for p in pending]
+                pending.clear()
+                ts, metrics = step_fn(ts, *stacked)
+                metrics = host_metrics(metrics)
+                host_step += scan_k
+                done = False
+                for j in range(scan_k):
+                    step = host_step - scan_k + 1 + j
+                    if handle_step(step, metrics, index=j,
+                                   final=(j == scan_k - 1), window=scan_k):
+                        done = True
+                        break
+                if done:
+                    break
+                continue
+            images, gt_boxes, gt_classes, gt_mask = arrays
+            images = maybe_rescale(images, host_step)
+            last_batch["images"] = record.images
+            last_batch["gt"] = (record.boxes, record.mask)
+            ts, metrics = step_fn(ts, images, gt_boxes, gt_classes, gt_mask)
+            metrics = host_metrics(metrics)  # one transfer per step
+            host_step += 1
+            if handle_step(host_step, metrics):
+                break
+    finally:
+        if profiler is not None:
+            profiler.stop()
+        saver.flush()
+        logger.close()
+
+
+def cli():
+    """Console-script entry: guarded main."""
+    from ._guard import run
+    run(main)
+
+
+if __name__ == "__main__":
+    cli()

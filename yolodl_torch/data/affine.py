@@ -8,7 +8,7 @@ scipy ``affine_transform``), then maps box corners and re-clips with
 min-size / min-cropping-ratio filters (:288-350).
 
 Counterpart of ``yolodl_tpu/data/affine.py``, scipy path only: the C++ warp
-of ``native/loader.cpp`` comes with the training data path (ROADMAP A11b).
+of ``native/loader.cpp`` is not ported yet (ROADMAP A11b).
 """
 
 from __future__ import annotations

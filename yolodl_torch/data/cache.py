@@ -16,7 +16,7 @@ reference's cache output.
 
 Counterpart of ``yolodl_tpu/data/cache.py``.  Decoding takes the PIL path
 only: the native C++ decoder (``native/loader.cpp`` through
-``data/native_loader.py``) comes with the training data path (ROADMAP A11b).
+``data/native_loader.py``) is not ported yet (ROADMAP A11b).
 """
 
 from __future__ import annotations
@@ -62,8 +62,8 @@ class OnDemandLoader:
 
 def make_decode_loader(cache_hw: Tuple[int, int]):
     """The decode+letterbox loader: PIL, the reference's path under
-    ``YDL_NO_NATIVE_DECODE=1``.  The reference's C++ loader waits for the
-    training data path (ROADMAP A11b)."""
+    ``YDL_NO_NATIVE_DECODE=1``.  The reference's C++ loader is not ported
+    yet (ROADMAP A11b)."""
     return OnDemandLoader(cache_hw)
 
 

@@ -5,8 +5,7 @@ the RGB↔HSV conversions in ``tch-goodies/src/tensor.rs:957-1041``: random
 hue shift wraps modulo 1, saturation/value shifts clamp to [0,1].
 
 Counterpart of ``yolodl_tpu/data/color.py``, numpy path only: the fused C++
-jitter of ``native/loader.cpp`` comes with the training data path (ROADMAP
-A11b).
+jitter of ``native/loader.cpp`` is not ported yet (ROADMAP A11b).
 """
 
 from __future__ import annotations

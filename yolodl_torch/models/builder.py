@@ -15,13 +15,20 @@ normalizes with batch statistics, and the new running statistics, which the
 reference returns as ``new_state``, are written into the BN buffers in
 place.  The mode is that keyword, never ``nn.Module.training``.
 
-This slice ports the node kinds that the darknet YOLO cfgs of the serving
-path use: Input, ConvBn2D, Conv2D, DarknetRoute, DarknetShortcut, MaxPool,
-UpSample2D, Detect2D and MergeDetect2D.  Building a graph with any other
-kind raises ``NotImplementedError`` naming its ROADMAP item.  The
-reference's layout rewrites (``spd_stem``, ``fold_region``) and ``remat``
-are not ported: the port computes as the reference does with
-``spd_stem="off"``.
+The node kinds of the darknet YOLO cfgs and of the NEWSLAB models are
+ported: Input, ConvBn2D, Conv2D, DeconvBn2D, DarkCsp2D, SppCsp2D,
+DarknetRoute, DarknetShortcut, MaxPool (max and avg), UpSample2D, Sum2D,
+Concat2D, DynamicPad2D, Detect2D and MergeDetect2D.  Building a graph with
+any other kind raises ``NotImplementedError`` naming its ROADMAP item.  The
+reference's layout rewrites (``spd_stem``, ``fold_region``) are not
+ported: the port computes as the reference does with ``spd_stem="off"``.
+
+``remat="blocks"`` is the reference's: every ConvBn2D, DeconvBn2D,
+DarkCsp2D and SppCsp2D node runs under ``torch.utils.checkpoint`` (non
+reentrant), so the backward recomputes what lies inside the node from its
+input.  The checkpointed function returns the node's new BN statistics and
+the writes into the buffers stay outside it: a write inside would run
+again at the recompute and apply the momentum twice.
 """
 
 from __future__ import annotations
@@ -32,24 +39,19 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import activations
 from .._device import resolve_device
 from ..config import newslab as cfg
 from ..graph import Graph
 from ..graph.ir import MERGE_DETECT_2D
-from ..ops import conv, detect, norm, simple
+from ..ops import blocks, conv, detect, norm, simple
 
 Tensor = torch.Tensor
 
 # node kinds this slice does not run yet → the ROADMAP item that ports them
 _NOT_PORTED = {
-    cfg.DeconvBn2D: "A2 (deconv)",
-    cfg.DarkCsp2D: "A2 (NEWSLAB blocks)",
-    cfg.SppCsp2D: "A2 (NEWSLAB blocks)",
-    cfg.Sum2D: "A2 (NEWSLAB plumbing)",
-    cfg.Concat2D: "A2 (NEWSLAB plumbing)",
-    cfg.DynamicPad2D: "A2 (NEWSLAB plumbing)",
     cfg.Linear: "A12 (other workloads)",
     cfg.DarknetRnn: "A12 (other workloads)",
     cfg.DarknetGru: "A12 (other workloads)",
@@ -57,9 +59,13 @@ _NOT_PORTED = {
     cfg.DarknetCrnn: "A12 (other workloads)",
 }
 
-_PORTED = (cfg.Input, cfg.ConvBn2D, cfg.Conv2D, cfg.DarknetRoute,
-           cfg.DarknetShortcut, cfg.MaxPool, cfg.UpSample2D, cfg.Detect2D,
+_PORTED = (cfg.Input, cfg.ConvBn2D, cfg.Conv2D, cfg.DeconvBn2D, cfg.DarkCsp2D,
+           cfg.SppCsp2D, cfg.DarknetRoute, cfg.DarknetShortcut, cfg.MaxPool,
+           cfg.UpSample2D, cfg.Sum2D, cfg.Concat2D, cfg.DynamicPad2D, cfg.Detect2D,
            cfg.MergeDetect2D)
+
+# node kinds with parameters whose apply returns (output, new BN state)
+_BN_KINDS = (cfg.ConvBn2D, cfg.DeconvBn2D, cfg.DarkCsp2D, cfg.SppCsp2D)
 
 
 def _detach(out):
@@ -139,17 +145,62 @@ class ConvNode(nn.Module):
     def state(self) -> Dict:
         return {"bn": self.bn.state()} if self.bn is not None else {}
 
+    @torch.no_grad()
+    def write_state(self, new_state: Dict) -> None:
+        """Copy the new running statistics of a training forward into the
+        BN buffers."""
+        if self.bn is not None:
+            self.bn.mean.copy_(new_state["bn"]["mean"])
+            self.bn.var.copy_(new_state["bn"]["var"])
+
+    @torch.no_grad()
+    def clamp_running_var(self, var_min: Optional[float], var_max: Optional[float]) -> None:
+        if self.bn is not None:
+            self.bn.var.copy_(norm.clamp_running_var(self.bn.state(), var_min, var_max)["var"])
+
+
+class BlockNode(nn.ModuleDict):
+    """The sub-convs of a DarkCsp2D or SppCsp2D node, keyed by the
+    reference's sub-layer names; ``params()``/``state()`` give the nested
+    trees the block functions of ``ops/blocks.py`` take."""
+
+    def __init__(self, convs, bn: cfg.BatchNormConfig, device):
+        bias = cfg.ConvBn2D(bn=bn).bias  # a sub-conv is a default ConvBn2D
+        super().__init__({name: ConvNode(ci, co, k, 1, bias, bn, device)
+                          for name, ci, co, k in convs})
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for m in self.values():
+            m.reset_parameters(generator)
+
+    def params(self) -> Dict:
+        return {name: m.params() for name, m in self.items()}
+
+    def state(self) -> Dict:
+        return {name: m.state() for name, m in self.items() if m.bn is not None}
+
+    def write_state(self, new_state: Dict) -> None:
+        for name, s in new_state.items():
+            self[name].write_state(s)
+
+    def clamp_running_var(self, var_min: Optional[float], var_max: Optional[float]) -> None:
+        for m in self.values():
+            m.clamp_running_var(var_min, var_max)
+
 
 class GraphModel(nn.Module):
     """Any graph of the ported node kinds as one module."""
 
     def __init__(self, graph: Graph, *, device="cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, remat: str = "off"):
         """``device`` defaults to ``"cuda"`` and raises without a card;
         ``generator`` seeds :meth:`init` (a CPU generator seeded 0 when
-        omitted)."""
+        omitted); ``remat`` is "off" or "blocks" (see the module's doc)."""
         super().__init__()
+        if remat not in ("off", "blocks"):
+            raise ValueError(f"remat must be off|blocks, got {remat!r}")
         device = resolve_device(device)
+        self.remat = remat == "blocks"
         self.graph = graph
         self.output_key = graph.output_node().key
         self._pname: Dict[int, str] = {
@@ -164,6 +215,7 @@ class GraphModel(nn.Module):
         self._sg_keys = {key for key, name in self._pname.items() if name in sg_paths}
 
         self.layers = nn.ModuleDict()
+        self._in_c: Dict[int, int] = {}
         for key in graph.order:
             node = graph.nodes[key]
             layer = node.config
@@ -172,12 +224,20 @@ class GraphModel(nn.Module):
                 raise NotImplementedError(
                     f"{layer.kind} is not ported to yolodl_torch yet "
                     f"(ROADMAP {item})")
-            if isinstance(layer, (cfg.ConvBn2D, cfg.Conv2D)):
-                src = graph.nodes[node.input_keys.single_key].output_shape
-                in_c = src.tensor_shape()[1].size
-                bn = layer.bn if isinstance(layer, cfg.ConvBn2D) else None
-                self.layers[module_key(self._pname[key])] = ConvNode(
-                    in_c, layer.c, layer.k, layer.g, layer.bias, bn, device)
+            if not isinstance(layer, (cfg.Conv2D,) + _BN_KINDS):
+                continue
+            src = graph.nodes[node.input_keys.single_key].output_shape
+            in_c = self._in_c[key] = src.tensor_shape()[1].size
+            if isinstance(layer, cfg.DarkCsp2D):
+                m = BlockNode(blocks.dark_csp_convs(layer, in_c), layer.bn, device)
+            elif isinstance(layer, cfg.SppCsp2D):
+                m = BlockNode(blocks.spp_csp_convs(layer, in_c), layer.bn, device)
+            else:
+                # a DeconvBn2D kernel is kept [out, in, k, k] like a conv's
+                # (ops/conv.py); the reference rejects a grouped deconv
+                bn = None if isinstance(layer, cfg.Conv2D) else layer.bn
+                m = ConvNode(in_c, layer.c, layer.k, layer.g, layer.bias, bn, device)
+            self.layers[module_key(self._pname[key])] = m
 
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -189,8 +249,36 @@ class GraphModel(nn.Module):
         for m in self.layers.values():
             m.reset_parameters(generator)
 
-    def _node(self, key: int) -> ConvNode:
+    def _node(self, key: int):
         return self.layers[module_key(self._pname[key])]
+
+    def _apply_bn_node(self, key: int, layer, x: Tensor, train: bool) -> Tensor:
+        """A node of ``_BN_KINDS``: its apply function, under checkpoint with
+        ``remat="blocks"``; in training, the new running statistics it
+        returns are written into the buffers here, outside the checkpoint."""
+        m = self._node(key)
+        if isinstance(layer, cfg.ConvBn2D):
+            fn = conv.conv_bn_apply
+        elif isinstance(layer, cfg.DeconvBn2D):
+            fn = conv.deconv_bn_apply
+        else:
+            block = (blocks.dark_csp_apply if isinstance(layer, cfg.DarkCsp2D)
+                     else blocks.spp_csp_apply)
+            in_c = self._in_c[key]
+
+            def fn(params, state, inp, layer, train):
+                return block(params, state, inp, layer, in_c, train)
+
+        def run(inp):
+            return fn(m.params(), m.state(), inp, layer, train)
+
+        if self.remat and torch.is_grad_enabled():
+            out, new_state = checkpoint(run, x, use_reentrant=False)
+        else:
+            out, new_state = run(x)
+        if train:
+            m.write_state(new_state)
+        return out
 
     def forward(self, x: Tensor, data_format: str = "NCHW", *, train: bool = False):
         """Forward → the graph output, a MergedDetection for YOLO.
@@ -223,14 +311,8 @@ class GraphModel(nn.Module):
                     outputs[key] = x
                 else:
                     outputs[key] = outputs[ik.single_key]
-            elif isinstance(layer, cfg.ConvBn2D):
-                m = self._node(key)
-                outputs[key], new_state = conv.conv_bn_apply(
-                    m.params(), m.state(), outputs[ik.single_key], layer, train)
-                if train and m.bn is not None:
-                    with torch.no_grad():
-                        m.bn.mean.copy_(new_state["bn"]["mean"])
-                        m.bn.var.copy_(new_state["bn"]["var"])
+            elif isinstance(layer, _BN_KINDS):
+                outputs[key] = self._apply_bn_node(key, layer, outputs[ik.single_key], train)
             elif isinstance(layer, cfg.Conv2D):
                 m = self._node(key)
                 outputs[key] = conv.conv2d_apply(
@@ -241,6 +323,14 @@ class GraphModel(nn.Module):
                     outputs[key] = simple.downsample2d(outputs[ik.single_key], layer.stride)
                 else:
                     outputs[key] = simple.upsample2d(outputs[ik.single_key], layer.scale)
+            elif isinstance(layer, cfg.DynamicPad2D):
+                outputs[key] = simple.dynamic_pad2d(
+                    outputs[ik.single_key], layer.t, layer.b, layer.l, layer.r,
+                    layer.pad_kind)
+            elif isinstance(layer, cfg.Sum2D):
+                outputs[key] = simple.sum2d([outputs[k] for k in ik.iter_keys()])
+            elif isinstance(layer, cfg.Concat2D):
+                outputs[key] = simple.concat2d([outputs[k] for k in ik.iter_keys()])
             elif isinstance(layer, cfg.MaxPool):
                 outputs[key] = simple.max_pool2d(
                     outputs[ik.single_key], layer.size, layer.stride_y,
@@ -294,19 +384,16 @@ class GraphModel(nn.Module):
     @torch.no_grad()
     def clamp_running_vars(self) -> None:
         """Clamp every BN running variance to its node's var_min/var_max, in
-        place (model.rs:412-422 → dark_batch_norm.rs:148-172).  Called after
-        each optimizer step."""
+        place (model.rs:412-422 → dark_batch_norm.rs:148-172); a block's
+        sub-convs take the block's.  Called after each optimizer step."""
         for key in self.graph.order:
             layer = self.graph.nodes[key].config
-            if not isinstance(layer, cfg.ConvBn2D):
+            if not isinstance(layer, _BN_KINDS):
                 continue
             bn_cfg = layer.bn
             if bn_cfg.var_min is None and bn_cfg.var_max is None:
                 continue
-            m = self._node(key)
-            if m.bn is not None:
-                m.bn.var.copy_(norm.clamp_running_var(
-                    m.bn.state(), bn_cfg.var_min, bn_cfg.var_max)["var"])
+            self._node(key).clamp_running_var(bn_cfg.var_min, bn_cfg.var_max)
 
 
 class YoloModel(GraphModel):
@@ -314,7 +401,7 @@ class YoloModel(GraphModel):
     class count (model.rs:330-353)."""
 
     def __init__(self, graph: Graph, *, device="cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, remat: str = "off"):
         out = graph.nodes[graph.output_node().key]
         if out.output_shape.kind != MERGE_DETECT_2D:
             raise ValueError(
@@ -326,6 +413,6 @@ class YoloModel(GraphModel):
         classes = {n.config.classes for n in det_nodes}
         if len(classes) != 1:
             raise ValueError(f"Detect2D heads disagree on num_classes: {classes}")
-        super().__init__(graph, device=device, generator=generator)
+        super().__init__(graph, device=device, generator=generator, remat=remat)
         self.num_classes: int = classes.pop()
         self.anchors: Tuple = tuple(n.config.anchors for n in det_nodes)

@@ -1,4 +1,4 @@
-"""Convolution blocks: ConvBn2D / Conv2D.
+"""Convolution blocks: ConvBn2D / Conv2D / DeconvBn2D.
 
 Counterpart of ``yolodl_tpu/ops/conv.py``.  Activations are NCHW and kernels
 OIHW, PyTorch's own layout; ``bridge.py`` transposes the reference's HWIO
@@ -7,7 +7,14 @@ reference casts it (conv.py:48-58), so a bf16 forward runs a bf16 conv.
 
 Both block orders: ``act_bn`` (conv → activation → BN, the NEWSLAB default,
 conv_bn_2d.rs:88-101) and ``bn_act`` (conv → BN → activation, darknet).
-Deconv comes with a later slice (ROADMAP A2).
+
+A DeconvBn2D kernel is kept as the bridge gives every kernel,
+``[out, in, k, k]`` (the reference's HWIO ``[k, k, in, out]`` permuted by
+``(3, 2, 0, 1)``); ``F.conv_transpose2d`` wants ``[in, out, k, k]``, so
+:func:`deconv_bn_apply` passes ``w.transpose(0, 1)``, which is HWIO permuted
+by ``(2, 3, 0, 1)``.  ``F.conv_transpose2d`` is the adjoint of the forward
+conv itself, so the spatial flip the reference needs for
+``lax.conv_transpose`` (conv.py:139-145) is not repeated here.
 """
 
 from __future__ import annotations
@@ -67,4 +74,30 @@ def conv_bn_apply(
         out = activations.apply(layer.act, out)
     else:
         raise ValueError(f"unknown conv order {layer.order!r}")
+    return out, new_state
+
+
+def deconv_bn_apply(
+    params: Dict[str, Any],
+    state: Dict[str, Any],
+    x: Tensor,
+    layer: cfg.DeconvBn2D,
+    train: bool,
+) -> Tuple[Tensor, Dict[str, Any]]:
+    """Transposed conv → activation → BN, with torch's padding and output
+    padding: out = (in-1)*s - 2p + d*(k-1) + op + 1 (deconv_bn_2d.rs:164-165);
+    the output padding lies on the high side only."""
+    if layer.g != 1:
+        raise NotImplementedError(
+            "grouped transposed conv is not supported (nor is it in the reference)")
+    out = F.conv_transpose2d(
+        x, params["w"].transpose(0, 1).to(x.dtype), None, stride=layer.s,
+        padding=layer.padding, output_padding=layer.op, dilation=layer.d)
+    if "b" in params:
+        out = out + params["b"].to(out.dtype).view(1, -1, 1, 1)
+    out = activations.apply(layer.act, out)
+    new_state = state
+    if layer.bn.enabled:
+        out, bn_s = batch_norm_apply(params["bn"], state["bn"], out, train)
+        new_state = {**state, "bn": bn_s}
     return out, new_state

@@ -35,6 +35,10 @@ class DetectionInfo:
     flat_end: int
     class_act: str = "sigmoid"  # "sigmoid" | "softmax" (region heads)
 
+    @property
+    def num_anchors(self) -> int:
+        return len(self.anchors)
+
 
 @dataclasses.dataclass
 class DenseDetection:

@@ -1,4 +1,4 @@
-"""Shape-plumbing ops: upsample, maxpool, sum, concat.
+"""Shape-plumbing ops: upsample, max/avg pool, sum, concat, pad.
 
 Counterpart of ``yolodl_tpu/ops/simple.py``, NCHW layout throughout.
 """
@@ -40,24 +40,33 @@ def max_pool2d(
     total_padding: Optional[int] = None,
     pool_kind: str = "max",
 ) -> Tensor:
-    """Max-pool with -inf padding.
+    """Max-pool with -inf padding, or darknet's local average pool.
 
     ``padding`` is symmetric per side (torch style); ``total_padding`` when
     given uses darknet's asymmetric split lo=tp//2, hi=tp-tp//2
     (darknet maxpool_layer semantics, out = (in+tp-size)//stride+1).
     ``F.max_pool2d`` pads only symmetrically, so the padding is applied
-    first with ``F.pad(value=-inf)``.
+    first with ``F.pad``.  ``pool_kind="avg"`` divides each window's sum by
+    its count of in-bounds cells (darknet local_avgpool's ``counter``), as
+    the reference does with two window sums; ``count_include_pad=False``
+    cannot, since its padding is symmetric.
     """
-    if pool_kind != "max":
-        raise NotImplementedError(
-            f"pool_kind={pool_kind!r} is not ported yet (ROADMAP A2)")
+    if pool_kind not in ("max", "avg"):
+        raise ValueError(f"unknown pool_kind {pool_kind!r}")
     if total_padding is not None:
         lo, hi = total_padding // 2, total_padding - total_padding // 2
     else:
         lo = hi = padding
+    stride = (stride_y, stride_x)
+    if pool_kind == "avg":
+        pads = (lo, hi, lo, hi)
+        summed = F.avg_pool2d(F.pad(x, pads), size, stride, divisor_override=1)
+        ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype, device=x.device)
+        counts = F.avg_pool2d(F.pad(ones, pads), size, stride, divisor_override=1)
+        return summed / counts
     if lo or hi:
         x = F.pad(x, (lo, hi, lo, hi), value=float("-inf"))
-    return F.max_pool2d(x, kernel_size=size, stride=(stride_y, stride_x))
+    return F.max_pool2d(x, kernel_size=size, stride=stride)
 
 
 def sum2d(xs: Sequence[Tensor]) -> Tensor:
@@ -70,3 +79,9 @@ def sum2d(xs: Sequence[Tensor]) -> Tensor:
 def concat2d(xs: Sequence[Tensor]) -> Tensor:
     """Channel concat (axis 1 in NCHW)."""
     return torch.cat(list(xs), dim=1)
+
+
+def dynamic_pad2d(x: Tensor, t: int, b: int, l: int, r: int, kind: str = "zero") -> Tensor:
+    """Zero/replication/reflection padding (dynamic_pad_nd.rs:11)."""
+    mode = {"zero": "constant", "replication": "replicate", "reflection": "reflect"}[kind]
+    return F.pad(x, (l, r, t, b), mode=mode)

@@ -11,8 +11,10 @@ plus a JSON ``__meta__`` entry (step, loss, has_opt, has_ema, extra).
 The trees are nested dicts in the reference's layout, as
 ``yolodl_torch.bridge.params_to_jax`` gives them from a model's
 ``state_dict``; leaves may be numpy arrays or tensors, and loads return
-numpy.  The optimizer state (``opt/``) is the training CLI's: a load skips
-it, and asking to save or load it raises (ROADMAP A11b).
+numpy.  The optimizer state (``opt/``) is the reference's optax tree, as
+``train/loop.py`` ``optimizer_state_tree`` spells it (chain indices,
+``.count`` int32, ``.mu``/``.nu`` or ``.trace`` in HWIO), so a resume takes
+the same next step whichever package wrote the checkpoint.
 """
 
 from __future__ import annotations
@@ -36,10 +38,6 @@ _CKPT_RE = re.compile(
     # timestamp, so the loss text never affects recency)
     r"^(?P<timestamp>[0-9-]+)_(?P<step>\d{6,})_(?P<loss>[0-9a-z.+-]+)\.ckpt$"
 )
-
-_NO_OPT_STATE = ("optimizer state in checkpoints is not ported yet: it comes with "
-                 "the training CLI (ROADMAP A11b, train_main)")
-
 
 def _host(leaf) -> np.ndarray:
     """A leaf as a numpy array of its own (a tensor is copied off its
@@ -86,8 +84,6 @@ def save_checkpoint(
     ema_params: Any = None,
 ) -> str:
     """Write ``{timestamp}_{step:06}_{loss:08.5f}.ckpt``; returns the path."""
-    if opt_state is not None:
-        raise NotImplementedError(_NO_OPT_STATE)
     os.makedirs(checkpoint_dir, exist_ok=True)
     timestamp = time.strftime("%Y-%m-%d-%H-%M-%S")
     filename = f"{timestamp}_{step:06d}_{loss:08.5f}.ckpt"
@@ -96,9 +92,11 @@ def save_checkpoint(
     payload = {}
     payload.update(_flatten(params, "params/"))
     payload.update(_flatten(state, "state/"))
+    if opt_state is not None:
+        payload.update(_flatten(opt_state, "opt/"))
     if ema_params is not None:
         payload.update(_flatten(ema_params, "ema/"))
-    meta = {"step": step, "loss": loss, "has_opt": False,
+    meta = {"step": step, "loss": loss, "has_opt": opt_state is not None,
             "has_ema": ema_params is not None}
     if extra:
         meta["extra"] = extra
@@ -120,19 +118,20 @@ def load_checkpoint(
     state_template: Any,
     opt_template: Any = None,
 ) -> Tuple[Any, Any, Any, Dict[str, Any]]:
-    """Load a .ckpt → (params, state, None, meta).
+    """Load a .ckpt → (params, state, opt_state_or_None, meta).
 
-    ``meta["ema"]`` carries EMA parameters when present.  ``opt/`` entries
-    are skipped; an ``opt_template`` raises (ROADMAP A11b).
+    ``opt/`` is read when an ``opt_template`` is given and the checkpoint
+    has it; ``meta["ema"]`` carries EMA parameters when present.
     """
-    if opt_template is not None:
-        raise NotImplementedError(_NO_OPT_STATE)
     flat, meta = _read(path)
     params = _unflatten_into(params_template, flat, "params/")
     state = _unflatten_into(state_template, flat, "state/")
+    opt_state = None
+    if opt_template is not None and meta.get("has_opt"):
+        opt_state = _unflatten_into(opt_template, flat, "opt/")
     if meta.get("has_ema"):
         meta["ema"] = _unflatten_into(params_template, flat, "ema/")
-    return params, state, None, meta
+    return params, state, opt_state, meta
 
 
 def load_checkpoint_partial(
@@ -212,15 +211,13 @@ class AsyncCheckpointer:
              state: Any, opt_state: Any = None,
              extra: Optional[Dict[str, Any]] = None,
              ema_params: Any = None) -> None:
-        if opt_state is not None:
-            raise NotImplementedError(_NO_OPT_STATE)
         host = [None if t is None else tree_map_with_path(lambda _, x: _host(x), t)
-                for t in (params, state, ema_params)]
+                for t in (params, state, opt_state, ema_params)]
         self.flush()
         self._thread = threading.Thread(
             target=self._write,
-            args=(checkpoint_dir, step, loss, host[0], host[1]),
-            kwargs={"extra": extra, "ema_params": host[2]},
+            args=(checkpoint_dir, step, loss, host[0], host[1], host[2]),
+            kwargs={"extra": extra, "ema_params": host[3]},
             daemon=True,
         )
         self._thread.start()

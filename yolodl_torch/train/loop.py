@@ -19,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..loss import LossConfig, yolo_loss
@@ -122,6 +123,79 @@ def train_init(model: YoloModel, config: TrainConfig,
     optimizer = make_optimizer(config, params)
     ema = ema_init(dict(model.named_parameters())) if config.use_ema else None
     return TrainState(model=model, optimizer=optimizer, step=0, ema_params=ema), optimizer
+
+
+# torch's per-parameter optimizer state → the optax state field it equals
+_MOMENTS = {"adam": ((".mu", "exp_avg"), (".nu", "exp_avg_sq")),
+            "sgd": ((".trace", "momentum_buffer"),)}
+
+
+def _optax_layout(config: TrainConfig) -> Tuple[str, str]:
+    """(chain index of the moments' state, chain index of the schedule's
+    count) in the reference's ``optax.chain`` (loop.py ``make_optimizer``):
+    the clip transforms come first and hold no state; ``optax.adamw`` is
+    (scale_by_adam, add_decayed_weights, scale_by_schedule) and
+    ``optax.adam`` has no middle entry; SGD's weight decay is a chain entry
+    of its own before ``optax.sgd`` = (trace, scale_by_schedule)."""
+    first = int(config.clip_grad_value is not None) + int(config.clip_grad_norm is not None)
+    if config.optimizer == "adam":
+        return f"{first}/0", f"{first}/{2 if config.weight_decay else 1}"
+    if config.optimizer == "sgd":
+        first += int(bool(config.weight_decay))
+        return f"{first}/0", f"{first}/1"
+    raise ValueError(f"unknown optimizer {config.optimizer!r}")
+
+
+def _nest(tree: Dict, path: str) -> Dict:
+    for key in path.split("/"):
+        tree = tree.setdefault(key, {})
+    return tree
+
+
+def optimizer_state_tree(ts: TrainState, config: TrainConfig) -> Dict:
+    """The optimizer state as the reference's optax state tree, nested
+    dicts keyed as its checkpoint spells them: ``{"0": {"0": {".count",
+    ".mu": {<node>: {"w": HWIO, …}}, ".nu": …}, "2": {".count"}}}`` for
+    AdamW (``.trace`` for SGD).  The counts are int32 ``ts.step``; a moment
+    that torch has not created yet (no step taken) is zero, as optax
+    initializes it."""
+    from ..bridge import params_to_jax
+
+    moments_at, count_at = _optax_layout(config)
+    count = np.asarray(ts.step, np.int32)
+    tree: Dict = {}
+    named = dict(ts.model.named_parameters())
+    moments = _nest(tree, moments_at)
+    for field, torch_key in _MOMENTS[config.optimizer]:
+        values = {}
+        for name, p in named.items():
+            value = ts.optimizer.state.get(p, {}).get(torch_key)
+            values[name] = torch.zeros_like(p) if value is None else value
+        moments[field] = params_to_jax(values)[0]
+    if config.optimizer == "adam":
+        moments[".count"] = count
+    _nest(tree, count_at)[".count"] = count
+    return tree
+
+
+@torch.no_grad()
+def load_optimizer_state_tree(ts: TrainState, config: TrainConfig, tree: Dict) -> None:
+    """Set the optimizer's state from a reference optax tree (the inverse of
+    :func:`optimizer_state_tree`), on the parameters' devices.  torch's Adam
+    keeps the update count as a float tensor per parameter."""
+    from ..bridge import params_from_jax
+
+    moments_at, _ = _optax_layout(config)
+    moments = tree
+    for key in moments_at.split("/"):
+        moments = moments[key]
+    values = {torch_key: params_from_jax(moments[field], {})
+              for field, torch_key in _MOMENTS[config.optimizer]}
+    for name, p in ts.model.named_parameters():
+        state = {torch_key: v[name].to(p.device) for torch_key, v in values.items()}
+        if config.optimizer == "adam":
+            state["step"] = torch.tensor(float(np.asarray(moments[".count"])))
+        ts.optimizer.state[p] = state
 
 
 def collect_step_metrics(config: TrainConfig, out, aux, pred) -> dict:
