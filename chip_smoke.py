@@ -117,7 +117,37 @@ result line:
    wgrad launch.  Prints step ms (CUDA events), img/s, peak memory, a
    profile of one step (device ms, kernels, the costliest, the card's idle
    share) and of its parts (forward, loss, backward, optimizer).
-8. card   — `nvidia-smi --query-gpu=name,power.limit` as it prints it.
+8. darknet_loss — the darknet-exact loss (yolodl_torch/loss/darknet_loss.py),
+   TF32 off for its f32 comparisons.  First the card against the CPU:
+   yolov4-csp's three head params at 608² and Gaussian_yolov3_BDD's at
+   512², seeded f32 NCHW raws (batch 2) and 64 truth rows an image (40
+   real, then zeros); every discrete decision (head_decisions: the ignore
+   and truth_thresh masks, each truth's best anchor and the cells it
+   writes) and num_matched identical, each head's delta within 1e-4 ·
+   max|ref|, the cost within rel 1e-5.  Then yolov4-csp at 608², b16,
+   bf16 images, TrainConfig(darknet_loss=...) on bench.py's synthetic
+   batch: 2 warm-up and 10 timed steps through make_train_step and one
+   make_multi_step(k=2) call; every loss finite, num_matched > 0, every
+   parameter changed.  The line gives step ms (CUDA events) and img/s
+   beside phase train's production-loss step, peak memory, the loss alone
+   (forward + backward on that batch's head outputs: ms by events, device
+   ms, kernels, host syncs = aten::item/_local_scalar_dense calls, which
+   must be 0) and its share of the step, and a profile of one step.  Last,
+   train_main.main with training.loss.impl Darknet on
+   cfg/darknet/Gaussian_yolov3_BDD.cfg: cfg/train.json5 with only the
+   model, loss.impl, the dataset (192 + 24 seeded JPEGs over BDD's 10
+   classes), logging.dir, cache_dir, load_checkpoint, an evaluation block
+   (every 3 steps, batch 8) and training.multi_scale (the sizes darknet's
+   random=1 gives at 512², interval 2) changed, and the batch cut only if
+   its saved activations at the largest visited size outgrow 56 GB (the
+   line prints the cut and its reason).  6 steps visit 3 sizes, each of
+   which must train with head params of that size; B1's counters zeroed
+   right before and read right after: 1 launch of each kernel for the
+   step-1 inference + 1 per evaluation batch (2 x 3).  The line gives
+   steps/s, ms per step by span (data wait, the synchronized step, the
+   loss inside it, the rest), the loss's share of the step, peak memory,
+   and the card's name and power limit.
+9. card   — `nvidia-smi --query-gpu=name,power.limit` as it prints it.
 
 The line before the last lists the kernels; the last line is
 {"ok": true, "device": {...}}.  TF32 is switched off for every f32
@@ -183,6 +213,18 @@ TRAIN_MAIN_TIMEOUT = 600      # seconds for the interrupted subprocess
 TRAIN_MAIN_ACCUMULATION = 4   # micro-batches of 24: batch 96 at 256² fits 80 GB no other way
 BF16_BOX_TOL = 0.05      # bf16 vs f32 forward at 608²: max|Δ| / max|f32| of cycxhw
 BF16_LOGIT_TOL = 0.1     # ... and of the objectness and class logits
+DK_ROOT = os.path.join(REPO, "build", "chip_smoke_darknet")  # removed at the end
+DK_MODELS = (("yolov4-csp", CFG, 608),
+             ("Gaussian_yolov3_BDD", os.path.join(REPO, "cfg", "darknet", "Gaussian_yolov3_BDD.cfg"),
+              512))
+BDD_CLASSES = ("bike", "bus", "car", "motor", "person", "rider", "traffic light",
+               "traffic sign", "train", "truck")  # BDD100K's 10 detection classes
+DK_TRUTHS, DK_REAL = 64, 40   # truth rows an image in the card-vs-CPU check, real ones first
+DK_STEPS = 6                  # train_main steps on Gaussian_yolov3_BDD
+DK_MULTI_SCALE_INTERVAL = 2   # so that 6 steps visit 3 sizes
+DK_IMAGES, DK_EVAL_IMAGES = 192, 24
+DK_EVAL_INTERVAL, DK_EVAL_BATCH = 3, 8
+DK_SAVED_BUDGET = 56e9        # saved activations a batch may hold on the card's 80 GB
 TRAIN_BATCH = 16        # bench.py:20; fits the card's 80 GB (PERF.md)
 TRAIN_MAX_GT = 32       # bench.py:117
 DEVICE = "cuda"         # the cli, wgrad and train phases' device
@@ -734,6 +776,7 @@ def phase_train():
           "card_vs_cpu": parity, **profiled})
     del model, opt, ts, batch, stacked
     torch.cuda.empty_cache()
+    return {"step_ms_median": median, "img_per_s": TRAIN_BATCH * 1e3 / median}
 
 
 def profile_postprocess(svc, pred) -> dict:
@@ -1349,31 +1392,36 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
-def train_main_workspace(root, size, seed=0):
+def train_main_workspace(root, size, seed=0, names=None, images=None, eval_images=None):
     """JPEGs at TRAIN_MAIN_SIZES in turn (smooth colour fields with noise,
-    seed 0), 1-4 boxes each of cfg/class/iii.class's first class (the
-    64x64 model of cfg/train.json5 has one), as a training CSV set of
-    TRAIN_MAIN_IMAGES and a held-out one of TRAIN_MAIN_EVAL_IMAGES.
+    seed 0), 1-4 boxes each of a random one of ``names`` (default:
+    cfg/class/iii.class's first class, the one class of cfg/train.json5's
+    64x64 model), as a training CSV set of ``images`` (TRAIN_MAIN_IMAGES)
+    and a held-out one of ``eval_images`` (TRAIN_MAIN_EVAL_IMAGES).
     Returns {name: dataset.kind} for "train" and "eval"."""
     from PIL import Image
 
     rng = np.random.default_rng(seed)
-    with open(os.path.join(REPO, "cfg", "class", "iii.class")) as f:
-        name = f.readline().strip()
+    if names is None:
+        with open(os.path.join(REPO, "cfg", "class", "iii.class")) as f:
+            names = [f.readline().strip()]
+    images = TRAIN_MAIN_IMAGES if images is None else images
+    eval_images = TRAIN_MAIN_EVAL_IMAGES if eval_images is None else eval_images
     os.makedirs(os.path.join(root, "images"))
     with open(os.path.join(root, "classes.txt"), "w") as f:
-        f.write(name + "\n")
+        f.write("\n".join(names) + "\n")
     lines = {"train": ["image_file,class_name,cy,cx,h,w"], "eval": ["image_file,class_name,cy,cx,h,w"]}
-    for i in range(TRAIN_MAIN_IMAGES + TRAIN_MAIN_EVAL_IMAGES):
+    for i in range(images + eval_images):
         h, w = TRAIN_MAIN_SIZES[i % len(TRAIN_MAIN_SIZES)]
         low = rng.integers(0, 256, (h // 40 + 2, w // 40 + 2, 3), dtype=np.uint8)
         pixels = np.asarray(Image.fromarray(low).resize((w, h), Image.BILINEAR), np.int16)
         pixels = np.clip(pixels + rng.integers(-12, 13, (h, w, 3)), 0, 255).astype(np.uint8)
         Image.fromarray(pixels).save(os.path.join(root, "images", f"{i:04d}.jpg"), quality=90)
-        split = "train" if i < TRAIN_MAIN_IMAGES else "eval"
+        split = "train" if i < images else "eval"
         for _ in range(int(rng.integers(1, 5))):
             bh, bw = rng.uniform(0.1, 0.5) * h, rng.uniform(0.1, 0.5) * w
             cy, cx = rng.uniform(bh / 2, h - bh / 2), rng.uniform(bw / 2, w - bw / 2)
+            name = names[int(rng.integers(len(names)))] if len(names) > 1 else names[0]
             lines[split].append(f"{i:04d}.jpg,{name},{cy:.2f},{cx:.2f},{bh:.2f},{bw:.2f}")
     kinds = {}
     for split, rows in lines.items():
@@ -1414,29 +1462,35 @@ def newslab_card_vs_cpu(path) -> dict:
     return out
 
 
-def saved_activation_bytes(model_path, size) -> dict:
+def saved_bytes(model, size, **forward) -> int:
     """Bytes autograd saves for the backward of one image's training
-    forward at size², without and with remat "blocks" (unique storages,
-    torch.autograd.graph.saved_tensors_hooks), on the card."""
+    forward at size², on the card: unique storages seen by
+    torch.autograd.graph.saved_tensors_hooks, the parameters not counted."""
+    seen = {p.untyped_storage().data_ptr() for p in model.parameters()}
+    total = [0]
+
+    def pack(t):
+        ptr = t.untyped_storage().data_ptr()
+        if ptr not in seen:
+            seen.add(ptr)
+            total[0] += t.untyped_storage().nbytes()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        model(torch.rand((1, 3, size, size), device=DEVICE), train=True, **forward)
+    return total[0]
+
+
+def saved_activation_bytes(model_path, size) -> dict:
+    """saved_bytes of a NEWSLAB model at size², without and with remat
+    "blocks"."""
     from yolodl_torch.graph import Graph
     from yolodl_torch.models import YoloModel
 
     out = {}
-    x = torch.rand((1, 3, size, size), device=DEVICE)
     for remat in ("off", "blocks"):
         model = YoloModel(Graph.load_newslab_v1_json(model_path), device=DEVICE, remat=remat)
-        seen, total = set(), [0]
-
-        def pack(t):
-            key = (t.untyped_storage().data_ptr(), t.untyped_storage().nbytes())
-            if key not in seen:
-                seen.add(key)
-                total[0] += key[1]
-            return t
-
-        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
-            model(x, train=True)
-        out[remat] = total[0]
+        out[remat] = saved_bytes(model, size)
         del model
     torch.cuda.empty_cache()
     return out
@@ -1753,6 +1807,391 @@ def phase_train_main(iou):
     return {"train_main": launches, "detect_main_newslab": detect_launches}
 
 
+# ---------------------------------------------------------------------------
+# phase darknet_loss: the darknet-exact loss (loss/darknet_loss.py)
+
+
+def darknet_heads(path, size):
+    """(model graph, head-conv node keys, head params at size², each head's
+    (H, W) at size²) of a darknet cfg."""
+    from yolodl_torch.config import darknet_cfg as dk
+    from yolodl_torch.graph.from_darknet import graph_from_darknet
+    from yolodl_torch.loss.darknet_loss import head_params_from_darknet
+
+    darknet = dk.Darknet.load(path)
+    graph = graph_from_darknet(darknet)
+    keys = graph.detect_head_input_keys()
+    params = tuple(head_params_from_darknet(l, size, size) for l in darknet.layers
+                   if isinstance(l, dk.Yolo))
+    cfg_w = int(darknet.net.width)
+    shapes = []
+    for k in keys:
+        _, _, h, w = (d.size for d in graph.nodes[k].output_shape.tensor_shape())
+        shapes.append((size * h // cfg_w, size * w // cfg_w))
+    return graph, keys, params, shapes
+
+
+def darknet_truth(rng, batch, classes, rows=DK_TRUTHS, real=DK_REAL):
+    """Darknet truth rows (x, y, w, h, class): ``real`` random boxes, then
+    zero rows (the `!truth.x` break)."""
+    truth = np.zeros((batch, rows, 5), np.float32)
+    truth[:, :real, 0:2] = rng.uniform(0.02, 0.98, (batch, real, 2))
+    truth[:, :real, 2:4] = rng.uniform(0.01, 0.5, (batch, real, 2))
+    truth[:, :real, 4] = rng.integers(0, classes, (batch, real))
+    return truth
+
+
+def darknet_card_vs_cpu() -> dict:
+    """yolov4-csp's three head params at 608² and Gaussian_yolov3_BDD's at
+    512², seeded f32 NCHW raws (batch 2) and DK_TRUTHS truth rows an image
+    (DK_REAL real): the loss on the card against the CPU.  Every discrete
+    decision (head_decisions: the ignore and truth_thresh masks, each
+    truth's best anchor and the cells it writes) and num_matched must be
+    identical; each head's delta within 1e-4 · max|ref|, the cost within
+    rel 1e-5."""
+    from yolodl_torch.loss import darknet_loss as dl
+
+    out = {}
+    for name, path, size in DK_MODELS:
+        _, _, params, shapes = darknet_heads(path, size)
+        rng = np.random.default_rng(0)
+        raws = [rng.normal(0, 1, (2, p.num_anchors * p.entries, h, w)).astype(np.float32)
+                for p, (h, w) in zip(params, shapes)]
+        truth = darknet_truth(rng, 2, params[0].classes)
+        runs = {}
+        for device in ("cpu", DEVICE):
+            rs = [torch.from_numpy(r).to(device) for r in raws]
+            tr = torch.from_numpy(truth).to(device)
+            heads = []
+            for r, p in zip(rs, params):
+                braw = dl.reshape_head_raw(r, p)
+                decisions = dl.head_decisions(braw, tr, p)
+                delta = dl._head_deltas(braw, tr, p)[0]
+                heads.append(({k: v.cpu() for k, v in decisions.items()}, delta.cpu()))
+            loss, metrics = dl.darknet_detection_loss_with_metrics(rs, tr, params)
+            runs[device] = (heads, float(loss), int(metrics["num_matched"]))
+        (cpu_heads, cpu_loss, cpu_n), (card_heads, card_loss, card_n) = runs["cpu"], runs[DEVICE]
+        if card_n != cpu_n:
+            raise AssertionError(f"{name}: num_matched card {card_n} vs cpu {cpu_n}")
+        worst = 0.0
+        for k, ((d_cpu, x_cpu), (d_card, x_card)) in enumerate(zip(cpu_heads, card_heads)):
+            for key, v in d_cpu.items():
+                if not torch.equal(v, d_card[key]):
+                    raise AssertionError(f"{name} head {k}: decision {key!r} differs "
+                                         f"card vs cpu ({int((v != d_card[key]).sum())} entries)")
+            err = float((x_card - x_cpu).abs().max()) / float(x_cpu.abs().max())
+            if not err <= 1e-4:
+                raise AssertionError(f"{name} head {k}: delta card vs cpu {err} of max|ref|")
+            worst = max(worst, err)
+        if not abs(card_loss - cpu_loss) <= 1e-5 * abs(cpu_loss):
+            raise AssertionError(f"{name}: loss card {card_loss} vs cpu {cpu_loss}")
+        out[name] = {"image_size": size, "heads": [list(s) for s in shapes],
+                     "num_matched": card_n, "ignored_cells": [int(d["ignored"].sum())
+                                                              for d, _ in card_heads],
+                     "delta_max_err_of_max": worst, "loss_card": card_loss,
+                     "loss_cpu": cpu_loss}
+    return out
+
+
+def profile_calls(fn) -> dict:
+    """torch.profiler over fn(): device ms and kernels (is_device_work); the
+    host syncs as aten::item / aten::_local_scalar_dense calls (these count
+    a CPU tensor's too, such as the optimizer's step counters); and the
+    CUDA runtime's stream/device/event synchronizations that an operator
+    issued (the profiler's own and the closing torch.cuda.synchronize have
+    no operator above them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = [e for e in events if is_device_work(e)]
+    return {"device_ms": sum(e.device_time_total for e in kernels) / 1e3,
+            "kernels": len(kernels),
+            "host_syncs": sum(e.name in ("aten::item", "aten::_local_scalar_dense")
+                              for e in events),
+            "cuda_syncs": sum(e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                                         "cudaEventSynchronize")
+                              and e.cpu_parent is not None for e in events)}
+
+
+def darknet_train_step(train_ms) -> dict:
+    """yolov4-csp at 608², b16, bf16 images, TrainConfig(darknet_loss=...)
+    (Adam, as phase train) on bench.py's synthetic batch: 2 warm-up steps,
+    10 timed, one make_multi_step(k=2); every loss finite, num_matched > 0,
+    every parameter changed.  Then the loss alone (forward + backward, on
+    this batch's f32 head outputs): its ms by CUDA events, and a profile of
+    it and of one step: device ms, kernels, host syncs (0 in the loss)."""
+    from yolodl_torch.loss import darknet_loss as dl
+    from yolodl_torch.models import YoloModel
+    from yolodl_torch.train import TrainConfig, make_multi_step, make_train_step, train_init
+
+    graph, keys, params, _ = darknet_heads(CFG, IMAGE_SIZE)
+    model = YoloModel(graph, device=DEVICE, generator=torch.Generator().manual_seed(0))
+    config = TrainConfig(darknet_loss=(keys, params))
+    ts, opt = train_init(model, config)
+    images, boxes, classes, mask = synthetic_batch(TRAIN_BATCH, IMAGE_SIZE)
+    batch = (torch.from_numpy(images).to(torch.bfloat16).to(DEVICE),
+             *(torch.from_numpy(a).to(DEVICE) for a in (boxes, classes, mask)))
+    p0 = {k: v.detach().clone() for k, v in model.named_parameters()}
+    step = make_train_step(model, opt, config)
+
+    torch.cuda.reset_peak_memory_stats()
+    metrics = []
+    for _ in range(2):  # warm-up
+        ts, m = step(ts, *batch)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(11)]
+    events[0].record()
+    for i in range(10):
+        ts, m = step(ts, *batch)
+        events[i + 1].record()
+        metrics.append(m)
+    torch.cuda.synchronize()
+    step_ms = sorted(events[i].elapsed_time(events[i + 1]) for i in range(10))
+    stacked = tuple(x.unsqueeze(0).expand(2, *x.shape) for x in batch)
+    ts, m = make_multi_step(model, opt, config, 2)(ts, *stacked)
+    metrics.extend({k: v[i] for k, v in m.items()} for i in range(2))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    losses = [float(m["total_loss"]) for m in metrics]
+    if len(losses) != 14 or not all(np.isfinite(losses)):
+        raise AssertionError(f"darknet-loss train losses {losses}")
+    if not all(int(m["num_matched"]) > 0 for m in metrics):
+        raise AssertionError("a darknet-loss step matched no truth")
+    changed = sum(int(not torch.equal(v, p0[k])) for k, v in model.named_parameters())
+    if changed != len(p0):
+        raise AssertionError(f"{len(p0) - changed} of {len(p0)} parameters did not change")
+
+    # the loss alone, on this batch's head outputs, forward and backward
+    with torch.no_grad():
+        outs = model(batch[0], train=False, output_keys=keys)
+    raws = [outs[k].to(torch.float32).requires_grad_() for k in keys]
+    truth = dl.truth_rows(*batch[1:])
+
+    def loss_call():
+        loss, _ = dl.darknet_detection_loss_with_metrics(raws, truth, params)
+        loss.backward()
+
+    loss_call()
+    loss_ms = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        loss_call()
+        end.record()
+        torch.cuda.synchronize()
+        loss_ms.append(start.elapsed_time(end))
+    loss_prof = profile_calls(loss_call)
+    if loss_prof["host_syncs"] or loss_prof["cuda_syncs"] > 0:
+        raise AssertionError(f"the loss synced with the host: {loss_prof}")
+    if not loss_prof["kernels"]:
+        raise AssertionError("the loss's profile holds no device work")
+    step_prof = profile_calls(lambda: step(ts, *batch))
+    median = step_ms[len(step_ms) // 2]
+    loss_median = sorted(loss_ms)[len(loss_ms) // 2]
+    del model, opt, ts, batch, stacked, raws, outs
+    torch.cuda.empty_cache()
+    return {"model": "yolov4-csp", "image_size": IMAGE_SIZE, "batch": TRAIN_BATCH,
+            "dtype": "bfloat16", "truths_per_image": TRAIN_MAX_GT,
+            "step_ms_median": median, "step_ms_min": step_ms[0], "step_ms_max": step_ms[-1],
+            "img_per_s": TRAIN_BATCH * 1e3 / median,
+            "production_loss_step_ms_median": train_ms["step_ms_median"],
+            "production_loss_img_per_s": train_ms["img_per_s"],
+            "peak_memory_gb": peak_gb, "first_loss": losses[0], "last_loss": losses[-1],
+            "num_matched": int(metrics[-1]["num_matched"]),
+            "loss_ms_median": loss_median, "loss_ms_all": loss_ms,
+            "loss_share_of_step": loss_median / median,
+            "loss_device_ms": loss_prof["device_ms"], "loss_kernels": loss_prof["kernels"],
+            "loss_host_syncs": loss_prof["host_syncs"], "loss_cuda_syncs": loss_prof["cuda_syncs"],
+            "step_device_ms": step_prof["device_ms"], "step_kernels": step_prof["kernels"],
+            "step_item_calls": step_prof["host_syncs"], "step_cuda_syncs": step_prof["cuda_syncs"],
+            "device_idle_share": 1.0 - step_prof["device_ms"] / median}
+
+
+def darknet_train_main(iou) -> dict:
+    """train_main.main with training.loss.impl Darknet on
+    cfg/darknet/Gaussian_yolov3_BDD.cfg (Gaussian heads, 10 classes, 512²,
+    random=1): cfg/train.json5 read by the port's JSON5 reader with only
+    the model, loss.impl, the dataset (a seeded CSV set of DK_IMAGES +
+    DK_EVAL_IMAGES JPEGs over BDD's 10 classes), logging.dir, cache_dir,
+    load_checkpoint, an evaluation block and training.multi_scale changed:
+    the sizes darknet's random=1 gives at 512² (adopt_darknet_data_recipe),
+    at an interval of DK_MULTI_SCALE_INTERVAL so that DK_STEPS steps visit
+    several.  The batch is cut only if the saved activations of a batch at
+    the largest visited size outgrow DK_SAVED_BUDGET.  B1's counters are
+    zeroed right before and read right after: one launch for the step-1
+    inference and one per evaluation batch.  Every visited size must train
+    with head params of that size."""
+    import contextlib
+    import dataclasses
+    import shutil
+    import signal
+
+    from yolodl_torch import train as train_pkg
+    from yolodl_torch.cli import train_main
+    from yolodl_torch.config import darknet_cfg as dk
+    from yolodl_torch.config import json5_reader
+    from yolodl_torch.config.app_config import TrainAppConfig, adopt_darknet_data_recipe
+    from yolodl_torch.data import pipeline as pipeline_mod
+    from yolodl_torch.loss import darknet_loss as dl
+    from yolodl_torch.models import YoloModel
+
+    root = DK_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    kernels = (iou.nms_conflict_bits, iou.nms_keep_from_bits)
+    path, size = DK_MODELS[1][1], DK_MODELS[1][2]
+    try:
+        with open(TRAIN_MAIN_CONFIG) as f:
+            raw = json5_reader.load(f)
+        kinds = train_main_workspace(root, size, names=list(BDD_CLASSES), images=DK_IMAGES,
+                                     eval_images=DK_EVAL_IMAGES)
+        raw["model"] = {"kind": "Darknet", "cfg_file": path}
+        raw["training"]["loss"]["impl"] = "Darknet"
+        raw["dataset"]["kind"] = kinds["train"]
+        raw["logging"]["dir"] = os.path.join(root, "logs")
+        raw["preprocessor"]["cache"]["cache_dir"] = os.path.join(root, "cache")
+        raw["training"]["load_checkpoint"] = {"type": "Disabled"}
+        raw["evaluation"] = {"interval": DK_EVAL_INTERVAL, "batch_size": DK_EVAL_BATCH,
+                             "dataset": {"kind": kinds["eval"]}}
+        config = write_json(os.path.join(root, "train.json5"), raw)
+        recipe = adopt_darknet_data_recipe(TrainAppConfig.load(config), dk.Darknet.load(path))
+        sizes = [int(v) for v in recipe.multi_scale_sizes]
+        raw["training"]["multi_scale"] = {"sizes": sizes, "interval": DK_MULTI_SCALE_INTERVAL}
+        visited = sorted({sizes[(s // DK_MULTI_SCALE_INTERVAL) % len(sizes)]
+                          for s in range(DK_STEPS)})
+        graph, keys, _, _ = darknet_heads(path, size)
+        saved = saved_bytes(YoloModel(graph, device=DEVICE), max(visited), output_keys=keys)
+        torch.cuda.empty_cache()
+        batch = int(raw["training"]["batch_size"])
+        cut = None
+        if batch * saved > DK_SAVED_BUDGET:
+            fits = max(8, int(DK_SAVED_BUDGET // saved) // 8 * 8)
+            cut = {"from": batch, "to": fits,
+                   "reason": f"at {max(visited)}², f32, one image saves {saved / 1e9:.3f} GB "
+                             f"of activations: {batch * saved / 1e9:.1f} GB for {batch}, over "
+                             f"the {DK_SAVED_BUDGET / 1e9:.0f} GB this smoke allows on the "
+                             f"card's 80 GB"}
+            batch = raw["training"]["batch_size"] = fits
+        config = write_json(os.path.join(root, "train.json5"), raw)
+
+        spans = {"data_wait": [], "step": [], "loss": [], "evaluation": []}
+        trained, losses = [], []
+        real_prefetch, real_make_step = pipeline_mod.device_prefetch, train_pkg.make_train_step
+        real_loss = dl.darknet_detection_loss_with_metrics
+
+        def timed_prefetch(iterator, device="cuda", depth=2):
+            it = real_prefetch(iterator, device, depth)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(it)
+                except StopIteration:
+                    return
+                spans["data_wait"].append(time.perf_counter() - t0)
+                yield item
+
+        def timed_loss(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_loss(*args, **kwargs)
+            torch.cuda.synchronize()
+            spans["loss"].append(time.perf_counter() - t0)
+            return out
+
+        def recording_make_step(model, optimizer, cfg, *args, **kwargs):
+            step = real_make_step(model, optimizer, cfg, *args, **kwargs)
+            nets = {(p.net_w, p.net_h) for p in cfg.darknet_loss[1]}
+
+            def run(ts, images, *rest):
+                t0 = time.perf_counter()
+                ts, metrics = step(ts, images, *rest)
+                torch.cuda.synchronize()
+                spans["step"].append(time.perf_counter() - t0)
+                trained.append((int(images.shape[-1]), nets))
+                losses.append(float(metrics["total_loss"]))
+                return ts, metrics
+            return run
+
+        for fn in kernels:
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        out = io.StringIO()
+        saved_handlers = {s: signal.getsignal(s) for s in (signal.SIGINT, signal.SIGTERM)}
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(swapped(pipeline_mod, device_prefetch=timed_prefetch))
+            stack.enter_context(swapped(train_pkg, make_train_step=recording_make_step))
+            stack.enter_context(swapped(dl, darknet_detection_loss_with_metrics=timed_loss))
+            stack.enter_context(swapped(torch.backends.cudnn, allow_tf32=True))
+            stack.enter_context(contextlib.redirect_stdout(out))
+            t0 = time.perf_counter()
+            try:
+                train_main.main(["--config-file", config, "--max-steps", str(DK_STEPS),
+                                 *CLI_DEVICE_ARGS])
+            finally:
+                for s, handler in saved_handlers.items():
+                    signal.signal(s, handler)
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        lines = out.getvalue().splitlines()
+        evaluations = DK_STEPS // DK_EVAL_INTERVAL
+        per_eval = -(-DK_EVAL_IMAGES // DK_EVAL_BATCH)
+        if set(launches.values()) != {1 + evaluations * per_eval}:
+            raise AssertionError(f"darknet train_main: B1 launches {launches}, expected "
+                                 f"1 + {evaluations} x {per_eval}")
+        if len(losses) != DK_STEPS or not all(np.isfinite(losses)):
+            raise AssertionError(f"darknet train_main losses {losses}")
+        if not any(line.startswith("loss impl: darknet-exact (3 heads;") for line in lines):
+            raise AssertionError(f"darknet train_main printed no loss impl line: {lines[:20]}")
+        if (sorted({s for s, _ in trained}) != visited
+                or not all(nets == {(s, s)} for s, nets in trained)):
+            raise AssertionError(f"darknet train_main: sizes and head params {trained}")
+        step_ms = [v * 1e3 for v in spans["step"]]
+        loss_ms = [v * 1e3 for v in spans["loss"]]
+        wait_ms = [v * 1e3 for v in spans["data_wait"][:DK_STEPS]]
+        steady = slice(1, DK_STEPS)
+        n_steady = DK_STEPS - 1
+        steady_ms = (sum(wait_ms[steady]) + sum(step_ms[steady])) / n_steady
+        rest_ms = (total_s * 1e3 - sum(wait_ms) - sum(step_ms)) / DK_STEPS
+        return {"config": "cfg/train.json5", "model": path.replace(REPO + os.sep, ""),
+                "image_size": size, "multi_scale_sizes": sizes,
+                "multi_scale_interval": DK_MULTI_SCALE_INTERVAL, "visited_sizes": visited,
+                "head_net_sizes_by_step": [s for s, _ in trained], "batch": batch,
+                "batch_cut": cut, "saved_activations_gb_per_image": saved / 1e9,
+                "steps": DK_STEPS, "images": DK_IMAGES, "eval_images": DK_EVAL_IMAGES,
+                "steady_ms_per_step": steady_ms, "steps_per_s": 1e3 / steady_ms,
+                "records_per_s": batch * 1e3 / steady_ms,
+                "step_ms_by_span": {"data_wait": wait_ms, "step": step_ms,
+                                    "loss_in_step": loss_ms,
+                                    "evaluation_logging_and_rest_mean": rest_ms},
+                "loss_share_of_step": sum(loss_ms[steady]) / sum(step_ms[steady]),
+                "first_loss": losses[0], "last_loss": losses[-1], "peak_memory_gb": peak_gb,
+                "run_s": total_s, **{f"{k}_launches": v for k, v in launches.items()},
+                "card": card_line()}, launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def phase_darknet_loss(iou, train_ms) -> dict:
+    """The darknet-exact loss on the card: card against CPU, the train step
+    at the flagship's size beside phase train's, and train_main on
+    Gaussian_yolov3_BDD.  Returns B1's launches on the train_main run."""
+    parity = darknet_card_vs_cpu()
+    step = darknet_train_step(train_ms)
+    cli, launches = darknet_train_main(iou)
+    emit({"phase": "darknet_loss", "card_vs_cpu": parity, "train_step": step,
+          "train_main": cli, "card": card_line()})
+    return {"darknet_train_main": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1776,7 +2215,8 @@ def main() -> int:
                "serve_dense_route": {"pairwise_iou": launches["pairwise_iou"]},
                **phase_cli(iou), **phase_train_main(iou)}
     wgrad_launches, wgrad = phase_wgrad()
-    phase_train()
+    train_ms = phase_train()
+    by_path.update(phase_darknet_loss(iou, train_ms))
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -8,6 +8,7 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from yolodl_tpu.graph.from_darknet import load_darknet_graph as j_load
@@ -455,3 +456,202 @@ def run_main(module, config, *args):
     finally:
         for s, handler in saved.items():
             signal.signal(s, handler)
+
+
+# -- the darknet-exact loss: seeded heads, truths and the reference's values
+
+
+def darknet_params_pair(**fields):
+    """(reference, port) DarknetHeadParams with the same fields."""
+    from yolodl_tpu.loss import darknet_loss as jl
+    from yolodl_torch.loss import darknet_loss as tl
+
+    return jl.DarknetHeadParams(**fields), tl.DarknetHeadParams(**fields)
+
+
+def darknet_inputs(params, sizes, batch=2, truths=12, real=8, seed=0, scale=1.0):
+    """Seeded NCHW raw head outputs ``[B, A·E, H, W]`` (one per entry of
+    ``sizes``) and truth rows ``[B, T, 5]``: ``real`` rows, then zeros (the
+    `!truth.x` break).  Half of the real rows are the decoded prediction
+    of a random cell of the first head, moved by 1 % of its size and
+    widened by 3 %, so that the ignore, truth_thresh and recall branches
+    see IoUs near 1 (an exact copy would sit on dx_box_iou's corner ties,
+    where one ulp of exp switches the branch); the other half are random
+    boxes.  Image 0's third-last real row gets x = 0 (darknet's `!truth.x`
+    break: the rows after it are skipped too) and the last real row of
+    image 1 class -1 (skipped by the class-range check)."""
+    from yolodl_tpu.loss import darknet_loss as jl
+
+    rng = np.random.default_rng(seed)
+    raws = [rng.normal(0, scale, (batch, p.num_anchors * p.entries, fh, fw)).astype(np.float32)
+            for p, (fh, fw) in zip(params, sizes)]
+    p0, (fh, fw) = params[0], sizes[0]
+    raw0 = raws[0].reshape(batch, p0.num_anchors, p0.entries, fh, fw).transpose(0, 1, 3, 4, 2)
+    truth = np.zeros((batch, truths, 5), np.float32)
+    for b in range(batch):
+        bx, by, bw, bh = (np.asarray(v) for v in jl._pred_boxes(
+            jl._activate(jnp.asarray(raw0[b]), p0), p0))
+        for t in range(real):
+            if t % 2 == 0:
+                a, y, x = (int(rng.integers(n)) for n in (p0.num_anchors, fh, fw))
+                box = [bx[a, y, x] + 0.01 * bw[a, y, x], by[a, y, x] - 0.01 * bh[a, y, x],
+                       bw[a, y, x] * 1.03, bh[a, y, x] * 1.03]
+                if not (0.0 < box[0] < 1.0 and 0.0 < box[1] < 1.0
+                        and 0.01 < box[2] < 0.95 and 0.01 < box[3] < 0.95):
+                    box = list(rng.uniform([0.1, 0.1, 0.05, 0.05], [0.9, 0.9, 0.6, 0.6]))
+            else:
+                box = list(rng.uniform([0.05, 0.05, 0.02, 0.02], [0.95, 0.95, 0.7, 0.7]))
+            truth[b, t] = box + [int(rng.integers(p0.classes))]
+    if real > 3:
+        truth[0, real - 3, 0] = 0.0
+    if batch > 1 and real > 1:
+        truth[1, real - 1, 4] = -1
+    return raws, truth
+
+
+def darknet_reference(j_params, raws, truth, plain=False, dtype="float32"):
+    """The reference on ``raws`` (NCHW numpy) and ``truth``, in one jit: per
+    head the per-image ``_head_deltas(stats=True)`` (delta, tot, count,
+    telemetry), and ``darknet_detection_loss_with_metrics`` with its
+    gradient (NCHW); with ``plain`` also ``darknet_detection_loss`` and its
+    gradient (each loss compiles its own scan, about a second a head)."""
+    from yolodl_tpu.loss import darknet_loss as jl
+
+    params = tuple(j_params)
+
+    def ref(rs, tr):
+        heads = tuple(
+            jax.vmap(lambda x, y, p=p: jl._head_deltas(x, y, p, stats=True))(
+                jl.reshape_head_raw(r, p), tr)
+            for r, p in zip(rs, params))
+        (mloss, metrics), mgrad = jax.value_and_grad(
+            lambda r_: jl.darknet_detection_loss_with_metrics(r_, tr, params),
+            has_aux=True)(rs)
+        out = (heads, mloss, metrics, mgrad)
+        if plain:
+            out += jax.value_and_grad(lambda r_: jl.darknet_detection_loss(r_, tr, params))(rs)
+        return out
+
+    # bf16 raws: the reference's train step casts them to f32 before the loss
+    nhwc = tuple(jnp.asarray(r.transpose(0, 2, 3, 1)).astype(dtype).astype(jnp.float32)
+                 for r in raws)
+    out = jax.jit(ref)(nhwc, jnp.asarray(truth))
+    to_nchw = lambda gs: [np.asarray(g, np.float32).transpose(0, 3, 1, 2) for g in gs]
+    heads, mloss, metrics, mgrad = out[:4]
+    ref = {"heads": jax.tree_util.tree_map(np.asarray, heads),
+           "metrics_loss": float(mloss),
+           "metrics": {k: np.asarray(v) for k, v in metrics.items()},
+           "metrics_grad": to_nchw(mgrad)}
+    if plain:
+        ref["loss"], ref["grad"] = float(out[4]), to_nchw(out[5])
+    return ref
+
+
+def assert_darknet_matches(j_params, t_params, raws, truth, delta_tol=1e-5, cost_rtol=1e-5,
+                           plain=False, dtype="float32", grad_tol=None):
+    """The port against the reference on the same inputs, f32: every
+    head's delta within ``delta_tol`` · max|ref| and its telemetry counts
+    (applications, recall) exact, the sums rel 1e-5; both losses within
+    ``cost_rtol`` and their gradients within ``delta_tol`` · max|ref|;
+    the metrics' counts exact.  The port's ``darknet_detection_loss`` is
+    held against the reference's (``plain``) or, to save its compile,
+    against the reference's ``darknet_detection_loss_with_metrics``, whose
+    value and gradient the reference defines as the same.  Returns the
+    reference's values.  With ``dtype="bfloat16"`` both get the same
+    bf16-rounded raws: the port's loss computes in f32, as the reference's
+    train step does after casting them; the port's gradient is then bf16
+    (``grad_tol`` replaces ``delta_tol`` for the gradients)."""
+    from yolodl_torch.loss import darknet_loss as tl
+
+    ref = darknet_reference(j_params, raws, truth, plain=plain, dtype=dtype)
+    tr = torch.from_numpy(truth)
+    as_port = lambda r: torch.from_numpy(r).to(getattr(torch, dtype))
+    for k, (p, raw) in enumerate(zip(t_params, raws)):
+        delta, tot, cnt, stats = tl._head_deltas(
+            tl.reshape_head_raw(as_port(raw), p), tr, p, stats=True)
+        j_delta, j_tot, j_cnt, j_stats = ref["heads"][k]
+        scale = float(np.abs(j_delta).max())
+        np.testing.assert_allclose(delta.numpy(), j_delta, rtol=0, atol=delta_tol * scale,
+                                   err_msg=f"head {k} delta")
+        np.testing.assert_array_equal(cnt.numpy(), j_cnt, err_msg=f"head {k} count")
+        np.testing.assert_allclose(tot.numpy(), j_tot, rtol=1e-5, atol=1e-5,
+                                   err_msg=f"head {k} tot_iou_loss")
+        for name, got, want in zip(("tot_iou", "recall50", "recall75", "obj_sum", "cat_sum",
+                                    "sobj_sum"), stats, j_stats):
+            if name.startswith("recall"):
+                np.testing.assert_array_equal(got.numpy(), want, err_msg=f"head {k} {name}")
+            else:
+                np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5,
+                                           err_msg=f"head {k} {name}")
+    for with_metrics in (False, True):
+        rs = [as_port(r).requires_grad_() for r in raws]
+        if with_metrics:
+            loss, metrics = tl.darknet_detection_loss_with_metrics(rs, tr, t_params)
+            want_loss, want_grad = ref["metrics_loss"], ref["metrics_grad"]
+            for key, want in ref["metrics"].items():
+                got = metrics[key].detach().numpy()
+                assert not metrics[key].requires_grad, key
+                if key == "num_matched":
+                    assert got.dtype == np.int32 and int(got) == int(want), (key, got, want)
+                else:
+                    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6, err_msg=key)
+        else:
+            loss = tl.darknet_detection_loss(rs, tr, t_params)
+            key = "" if plain else "metrics_"
+            want_loss, want_grad = ref[key + "loss"], ref[key + "grad"]
+        assert float(loss.detach()) == pytest.approx(want_loss, rel=cost_rtol)
+        loss.backward()
+        for k, (r, want) in enumerate(zip(rs, want_grad)):
+            np.testing.assert_allclose(
+                r.grad.to(torch.float32).numpy(), want, rtol=0,
+                atol=(grad_tol or delta_tol) * float(np.abs(want).max()),
+                err_msg=f"head {k} gradient")
+    return ref
+
+
+DARKNET_TRAIN_CFG = """[net]
+width=64
+height=64
+channels=3
+[convolutional]
+batch_normalize=1
+filters=8
+size=3
+stride=2
+pad=1
+activation=leaky
+[convolutional]
+batch_normalize=1
+filters=16
+size=3
+stride=2
+pad=1
+activation=leaky
+[convolutional]
+filters=18
+size=1
+activation=linear
+[yolo]
+mask=0,1,2
+anchors=6,8, 10,14, 18,24
+classes=1
+num=3
+iou_loss=ciou
+iou_thresh=0.2
+max_delta=5
+ignore_thresh=0.6
+"""
+
+
+def write_darknet_train_workspace(root, cfg_text=DARKNET_TRAIN_CFG, size=64, **training):
+    """:func:`write_train_workspace` with a darknet model cfg (default: two
+    BN convs and a one-class [yolo] head with ciou, iou_thresh 0.2, at
+    64²) in place of the NEWSLAB model, the dataset at ``size``, and
+    ``training.loss.impl`` Darknet."""
+    path = write_train_workspace(root, **{"loss": {"impl": "Darknet"}, **training})
+    (root / "model.cfg").write_text(cfg_text)
+    config = json.loads((root / "train.json5").read_text())
+    config["model"] = {"kind": "Darknet", "cfg_file": "model.cfg"}
+    config["dataset"]["kind"]["image_size"] = size
+    (root / "train.json5").write_text(json.dumps(config))
+    return path

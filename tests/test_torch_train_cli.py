@@ -13,8 +13,8 @@ within rel 1e-4 (f32 forward and backward in another order; the Adam
 moments restored from the checkpoint keep the updates from amplifying
 rounding as a first step would); the two runs' last checkpoints hold the
 same entries with the same dtypes and shapes.  Also here: the multi-scale
-resize against ``jax.image.resize`` and the branches that raise naming
-their ROADMAP item.
+resize against ``jax.image.resize``, a run with ``loss.impl Darknet``,
+and the branches that raise naming their ROADMAP item.
 """
 
 import glob
@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from _torch_parity import run_main as run
+from _torch_parity import write_darknet_train_workspace
 from _torch_parity import write_train_workspace as write_workspace
 from yolodl_tpu.cli import train_main as j_train
 from yolodl_torch.cli import train_main as t_train
@@ -80,7 +81,8 @@ def test_multi_scale_resize_matches_jax_image_resize(src, dst):
 
 
 @pytest.mark.parametrize("training,item", [
-    ({"loss": {"impl": "Darknet"}}, "ROADMAP A9"),
+    ({"device_config": {"type": "MultiDevice", "devices": ["cuda:0", "cuda:1"]},
+      "pipeline_parallel": 2}, "ROADMAP A14"),
     ({"device_config": {"type": "MultiDevice", "devices": ["cuda:0", "cuda:1"]}},
      "ROADMAP A14"),
     ({"device_config": {"type": "MultiDevice", "devices": ["cuda:0", "cuda:1"]},
@@ -90,6 +92,19 @@ def test_unported_branches_name_their_item(tmp_path, training, item):
     config = write_workspace(tmp_path, **training)
     with pytest.raises((NotImplementedError, SystemExit), match=item):
         run(t_train, config, "--max-steps", "1", "--device", "cpu")
+
+
+def test_darknet_loss_trains_and_logs_telemetry(tmp_path, capsys):
+    """training.loss.impl Darknet on a darknet cfg: the run trains, prints
+    the loss impl line and logs darknet's telemetry on the benchmark panel.
+    (Its parity with the reference CLI: test_torch_darknet_loss_cli.py.)"""
+    config = write_darknet_train_workspace(tmp_path)
+    run(t_train, config, "--max-steps", "2", "--device", "cpu")
+    assert "loss impl: darknet-exact (1 heads;" in capsys.readouterr().out
+    for tag in ("loss/total_loss", "loss/iou_loss", "benchmark/num_matched",
+                "benchmark/avg_iou", "benchmark/recall50", "benchmark/no_obj"):
+        values = [v for _, v in logged(str(tmp_path / "logs"), tag)[0]]
+        assert len(values) == 2 and np.all(np.isfinite(values)), tag
 
 
 def test_device_augmentation_names_a13(tmp_path):

@@ -4,7 +4,7 @@ reference's message; a ``FromRecent`` run then restores it, resumes the
 data stream at step × batch records, and trains first on the batch an
 uninterrupted run trains on at that step (exactly equal); a config that
 needs an unported part fails with one ``error:`` line naming its ROADMAP
-item (``cli/_guard.py``).
+item (``cli/_guard.py``); a run with ``loss.impl Darknet`` exits 0.
 """
 
 import glob
@@ -20,6 +20,7 @@ import torch
 
 from _torch_parity import REPO as REPO_ROOT
 from _torch_parity import run_main as run
+from _torch_parity import write_darknet_train_workspace
 from _torch_parity import write_train_workspace as write_workspace
 from yolodl_torch import train as t_train_pkg
 from yolodl_torch.cli import train_main as t_train
@@ -96,11 +97,37 @@ def test_sigint_checkpoint_and_from_recent_resume(tmp_path, monkeypatch, capsys)
 
 
 def test_unported_part_fails_with_one_error_line(tmp_path):
-    config = write_workspace(tmp_path, loss={"impl": "Darknet"})
+    config = write_workspace(tmp_path)
+    raw = json.loads(open(config).read())
+    raw["preprocessor"]["pipeline"] = {"device": "tpu"}  # device augmentation
+    with open(config, "w") as f:
+        json.dump(raw, f)
     res = subprocess.run(
         [sys.executable, "-m", "yolodl_torch.cli.train_main", "--config-file", config,
          "--device", "cpu"], capture_output=True, text=True, cwd=REPO_ROOT, env=env(),
         timeout=120)
     assert res.returncode == 1
     errors = [x for x in res.stderr.splitlines() if x.startswith("error:")]
-    assert len(errors) == 1 and "ROADMAP A9" in errors[0], res.stderr
+    assert len(errors) == 1 and "ROADMAP A13" in errors[0], res.stderr
+
+
+def test_darknet_loss_run_exits_zero(tmp_path):
+    """``python -m yolodl_torch.cli.train_main`` with ``loss.impl Darknet``
+    on a darknet cfg: exit 0, the loss impl line, a checkpoint, and the
+    darknet telemetry among the logged scalars."""
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    config = write_darknet_train_workspace(tmp_path)
+    res = subprocess.run(
+        [sys.executable, "-m", "yolodl_torch.cli.train_main", "--config-file", config,
+         "--device", "cpu", "--max-steps", "2"], capture_output=True, text=True,
+        cwd=REPO_ROOT, env=env(), timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "loss impl: darknet-exact (1 heads;" in res.stdout
+    (run_dir,) = glob.glob(str(tmp_path / "logs" / "*"))
+    assert glob.glob(os.path.join(run_dir, "checkpoints", "*.ckpt"))
+    acc = EventAccumulator(run_dir, size_guidance={"scalars": 0})
+    acc.Reload()
+    assert {"benchmark/num_matched", "benchmark/avg_iou", "benchmark/avg_obj",
+            "benchmark/avg_cat", "benchmark/recall50", "benchmark/recall75",
+            "benchmark/no_obj"} <= set(acc.Tags()["scalars"])

@@ -1,8 +1,8 @@
 """The port's training step beyond the 5-step parity of test_torch_train.py:
 gradient accumulation (against the reference and against micro-batches run
 by hand), ``make_multi_step`` against single steps, gradient clipping
-against optax, the step's metrics and their keys, bf16 compute and the
-errors.  yolov4-tiny at 64², batch 2, f32, as there.
+against optax, the step's metrics and their keys, bf16 compute, a step
+with the darknet-exact loss, and the errors.  yolov4-tiny at 64², batch 2, f32, as there.
 
 Tolerances: one SGD step at lr 3e-4 from the same weights agrees to
 1e-5 · max|ref| per tensor (the first gradient agrees to 4e-5 of its
@@ -13,6 +13,9 @@ the same cells, rel 1e-3 (the maxima of gradients carry the gradient's
 rounding).
 """
 
+import dataclasses
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,7 +23,7 @@ import optax
 import pytest
 import torch
 
-from _torch_parity import (named_leaves, train_batches, train_configs, train_models,
+from _torch_parity import (REPO, named_leaves, train_batches, train_configs, train_models,
                            train_port, train_reference)
 from yolodl_tpu.train import loop as j_loop
 from yolodl_torch.bridge import params_from_jax, params_to_jax
@@ -141,12 +144,29 @@ def test_bf16_compute_keeps_f32_state():
     assert all(s["exp_avg"].dtype == torch.float32 for s in opt.state.values())
 
 
-def test_darknet_loss_is_not_ported_yet():
+def test_darknet_loss_step_trains():
+    """TrainConfig(darknet_loss=...) on yolov4-tiny's two [yolo] heads: the
+    step takes the raw head convs, returns the reference's darknet metric
+    keys as detached device tensors, and moves every parameter.  (The
+    step's parity with the reference: test_torch_darknet_loss_step.py.)"""
+    from yolodl_torch.config import darknet_cfg as dk
+    from yolodl_torch.loss.darknet_loss import METRIC_KEYS, head_params_from_darknet
+
     _, _, _, tm = train_models()
-    cfg = t_loop.TrainConfig(darknet_loss=((), (), ()))
+    net = dk.Darknet.load(os.path.join(REPO, "cfg", "darknet", "yolov4-tiny.cfg"))
+    spec = (tm.graph.detect_head_input_keys(),
+            tuple(head_params_from_darknet(l, 64, 64) for l in net.layers
+                  if isinstance(l, dk.Yolo)))
+    assert len(spec[0]) == len(spec[1]) == 2
+    _, cfg = train_configs(optimizer="sgd", lr=3e-4, momentum=0.9)
+    cfg = dataclasses.replace(cfg, darknet_loss=spec)
+    before = {k: v.clone() for k, v in tm.named_parameters()}
     ts, opt = t_loop.train_init(tm, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        t_loop.make_train_step(tm, opt, cfg)
+    ts, m = t_loop.make_train_step(tm, opt, cfg)(ts, *map(torch.from_numpy, train_batches(1)[0]))
+    assert set(m) == {"total_loss", *METRIC_KEYS}
+    assert all(not v.requires_grad for v in m.values())
+    assert torch.isfinite(m["total_loss"]) and int(m["num_matched"]) > 0
+    assert all(not torch.equal(v, before[k]) for k, v in tm.named_parameters())
 
 
 def test_unknown_optimizer_and_bad_accum_raise():

@@ -15,10 +15,15 @@ two kernels (``kernels/iou.py``): once each per inference image and once
 each per evaluation batch.  ``--profile-dir`` writes a ``torch.profiler``
 trace of steps 5-10 there.
 
+``training.loss.impl Darknet`` trains a darknet model cfg's raw head
+convs through the darknet-exact loss (``loss/darknet_loss.py``) with
+per-head params from its [yolo]/[Gaussian_yolo] sections; under
+multi-scale each training size gets its own step, whose params bind
+``net_w = net_h`` = that size.
+
 Not ported, each raising ``NotImplementedError`` naming its ROADMAP item:
-``training.loss.impl Darknet`` (A9), ``preprocessor.pipeline.device "tpu"``
-(A13), and several devices, MultiProcess, tensor/pipeline parallelism and
-ZeRO (A14).
+``preprocessor.pipeline.device "tpu"`` (A13), and several devices,
+MultiProcess, tensor/pipeline parallelism and ZeRO (A14).
 """
 
 from __future__ import annotations
@@ -320,16 +325,48 @@ def main(argv=None):
         raise SystemExit(
             f"unknown training.loss.impl {config.loss_impl!r} "
             "(expected Production or Darknet)")
+    # training.loss.impl=Darknet: the step trains the raw head-conv outputs
+    # (graph.detect_head_input_keys) through the darknet-exact loss, with
+    # per-head params from the model cfg's [yolo]/[Gaussian_yolo] sections
+    darknet_loss_spec = None
+    dk_heads = []
     if config.loss_impl == "darknet":
-        raise NotImplementedError(
-            "training.loss.impl Darknet (the darknet-exact loss) is not ported "
-            "to yolodl_torch yet (ROADMAP A9)")
+        # (the reference also rejects pipeline_parallel here; it needs
+        # several devices, which stop at _not_ported_parallelism first)
+        if config.model_kind != "darknet":
+            raise SystemExit(
+                "training.loss.impl Darknet needs a darknet model cfg")
+        from ..config import darknet_cfg as _dkl
+        from ..loss.darknet_loss import head_params_from_darknet
+
+        _dn = _dkl.Darknet.load(model_path)
+        dk_heads = [l for l in _dn.layers if isinstance(l, _dkl.Yolo)]
+        if not dk_heads:
+            raise SystemExit(
+                "training.loss.impl Darknet needs [yolo]/[Gaussian_yolo] "
+                "heads ([region]/[detection] exact losses are library-"
+                "level only: loss/darknet_loss.py)")
+        _h, _w, _ = _dn.net.input_shape_hwc
+        _head_params = []
+        for _li, _l in enumerate(_dn.layers):
+            if not isinstance(_l, _dkl.Yolo):
+                continue
+            try:
+                _head_params.append(head_params_from_darknet(_l, _w, _h))
+            except ValueError as e:
+                # cfg-validation-time rejection with the offender named
+                raise SystemExit(f"{model_path}: layer {_li}: {e}") from None
+        darknet_loss_spec = (graph.detect_head_input_keys(), tuple(_head_params))
+        print(f"loss impl: darknet-exact ({len(dk_heads)} heads; per-term "
+              "losses + darknet avg_iou/obj/no_obj/recall telemetry from "
+              "the delta buffers)")
 
     # trainer
     train_cfg = TrainConfig(
         lr=config.lr, optimizer=config.optimizer,
         momentum=config.momentum, weight_decay=config.weight_decay,
         loss=config.loss,
+        darknet_loss=darknet_loss_spec,
         use_ema=config.use_ema, ema_decay=config.ema_decay,
         benchmark_confidence=(
             config.nms_conf_thresh if config.logging.enable_benchmark else None
@@ -389,6 +426,26 @@ def main(argv=None):
 
     accum = config.accumulation_steps
     step_fn = make_train_step(model, optimizer, train_cfg, accum=accum)
+
+    # multi_scale × darknet-exact loss: the head params bind net_w/net_h
+    # (darknet's resize_network updates them per random=1 resize, and
+    # delta_yolo_box normalizes the anchors by them), so each training size
+    # gets its own step with head params of that size, built once
+    dk_steps = {}
+
+    def step_for_size(size):
+        if darknet_loss_spec is None or not config.multi_scale_sizes:
+            return step_fn
+        fn = dk_steps.get(size)
+        if fn is None:
+            import dataclasses as _dc
+
+            from ..loss.darknet_loss import head_params_from_darknet as _hp
+
+            spec = (darknet_loss_spec[0], tuple(_hp(l, size, size) for l in dk_heads))
+            fn = dk_steps[size] = make_train_step(
+                model, optimizer, _dc.replace(train_cfg, darknet_loss=spec), accum=accum)
+        return fn
 
     logger = LoggingWorker(run_dir).start()
     logger_holder["logger"] = logger if config.logging.enable_images else None
@@ -549,7 +606,11 @@ def main(argv=None):
         # rate the update used
         lr = lr_at_step(config.lr, step - 1)
         bench_keys = ("obj_accuracy", "obj_recall", "obj_precision",
-                      "class_accuracy", "num_matched")
+                      "class_accuracy", "num_matched",
+                      # darknet console taxonomy (loss.impl=Darknet;
+                      # yolo_layer.c:560-575 printed stats)
+                      "avg_iou", "avg_obj", "avg_cat", "recall50",
+                      "recall75", "no_obj")
         wg_keys = [k for k in metrics
                    if k.startswith(("weights_max/", "grads_max/"))]
         logger.log_training_output(
@@ -691,7 +752,8 @@ def main(argv=None):
             images = maybe_rescale(images, host_step)
             last_batch["images"] = record.images
             last_batch["gt"] = (record.boxes, record.mask)
-            ts, metrics = step_fn(ts, images, gt_boxes, gt_classes, gt_mask)
+            ts, metrics = step_for_size(int(images.shape[-1]))(
+                ts, images, gt_boxes, gt_classes, gt_mask)
             metrics = host_metrics(metrics)  # one transfer per step
             host_step += 1
             if handle_step(host_step, metrics):

@@ -202,6 +202,7 @@ class GraphModel(nn.Module):
         device = resolve_device(device)
         self.remat = remat == "blocks"
         self.graph = graph
+        self._node_sets: Dict[Tuple, frozenset] = {}
         self.output_key = graph.output_node().key
         self._pname: Dict[int, str] = {
             key: node.path if node.path is not None else f"node{key}"
@@ -280,7 +281,29 @@ class GraphModel(nn.Module):
             m.write_state(new_state)
         return out
 
-    def forward(self, x: Tensor, data_format: str = "NCHW", *, train: bool = False):
+    def _nodes_for(self, output_keys: Tuple[int, ...], train: bool) -> frozenset:
+        """The nodes a forward for ``output_keys`` runs: their ancestors, and
+        in training also every BN node's (whose running statistics the
+        reference's ``new_state`` updates whether or not its output is
+        requested)."""
+        cache_key = (output_keys, train)
+        nodes = self._node_sets.get(cache_key)
+        if nodes is None:
+            roots = list(output_keys)
+            if train:
+                roots += [k for k in self.graph.order
+                          if isinstance(self.graph.nodes[k].config, _BN_KINDS)]
+            seen = set()
+            while roots:
+                key = roots.pop()
+                if key not in seen:
+                    seen.add(key)
+                    roots.extend(self.graph.nodes[key].input_keys.iter_keys())
+            nodes = self._node_sets[cache_key] = frozenset(seen)
+        return nodes
+
+    def forward(self, x: Tensor, data_format: str = "NCHW", *, train: bool = False,
+                output_keys: Optional[Tuple[int, ...]] = None):
         """Forward → the graph output, a MergedDetection for YOLO.
 
         ``train=False`` normalizes BN with the running statistics.
@@ -290,7 +313,14 @@ class GraphModel(nn.Module):
         reference's returned ``new_state``.  Successive calls (micro-batches)
         therefore thread the state sequentially, as the reference's
         ``lax.scan`` over micro-batches does.
+
+        ``output_keys`` (the reference's ``apply(output_keys=...)``) returns
+        ``{key: output}`` for those nodes instead, and runs only what they
+        need (:meth:`_nodes_for`): given the raw head convs
+        (``graph.detect_head_input_keys()``), the decode and merge tail is
+        skipped, as the reference's jit drops it as dead code.
         """
+        run = None if output_keys is None else self._nodes_for(tuple(output_keys), train)
         if data_format == "NHWC":
             x = x.permute(0, 3, 1, 2)
         elif data_format != "NCHW":
@@ -298,6 +328,8 @@ class GraphModel(nn.Module):
 
         outputs: Dict[int, object] = {}
         for key in self.graph.order:
+            if run is not None and key not in run:
+                continue
             node = self.graph.nodes[key]
             layer = node.config
             ik = node.input_keys
@@ -379,6 +411,8 @@ class GraphModel(nn.Module):
 
             if key in self._sg_keys:
                 outputs[key] = _detach(outputs[key])
+        if output_keys is not None:
+            return {k: outputs[k] for k in output_keys}
         return outputs[self.output_key]
 
     @torch.no_grad()

@@ -54,7 +54,9 @@ class TrainConfig:
     return_obj_sample: bool = False
     # mean decoded cy/cx/h/w scalars per step
     debug_stat: bool = False
-    # training.loss.impl=Darknet (the darknet-exact loss): not ported yet
+    # training.loss.impl=Darknet: (head-conv node keys, per-head params of
+    # loss/darknet_loss.py) — the step trains the raw head outputs through
+    # the darknet-exact loss instead of yolo_loss
     darknet_loss: Optional[tuple] = None
     # compute dtype of the forward/backward ("bfloat16" | None).  The images
     # are cast at step entry and every conv casts its f32 weight to the
@@ -251,19 +253,31 @@ def make_batch_grads(
     """
     if accum < 1:
         raise ValueError(f"accum must be >= 1, got {accum}")
-    if config.darknet_loss is not None:
-        raise NotImplementedError(
-            "the darknet-exact loss (TrainConfig.darknet_loss) is not ported to "
-            "yolodl_torch yet (ROADMAP A9)")
     dtype = getattr(torch, config.compute_dtype) if config.compute_dtype is not None else None
 
-    def micro_batch(images, gt_boxes, gt_classes, gt_mask):
-        if dtype is not None:
-            images = images.to(dtype)
-        pred = model(images, data_format, train=True)
-        out, aux = yolo_loss(pred, gt_boxes, gt_classes, gt_mask, config.loss)
-        out.total_loss.backward()
-        return collect_step_metrics(config, out, aux, pred)
+    if config.darknet_loss is not None:
+        head_keys, head_params = config.darknet_loss
+        from ..loss.darknet_loss import darknet_detection_loss_with_metrics, truth_rows
+
+        def micro_batch(images, gt_boxes, gt_classes, gt_mask):
+            if dtype is not None:
+                images = images.to(dtype)
+            outs = model(images, data_format, train=True, output_keys=head_keys)
+            raws = tuple(outs[k].to(torch.float32) for k in head_keys)
+            loss, dk_metrics = darknet_detection_loss_with_metrics(
+                raws, truth_rows(gt_boxes, gt_classes, gt_mask), head_params)
+            loss.backward()
+            # the total, the per-term components and darknet's printed
+            # training stats (loss/darknet_loss.py _head_cost_delta_stats)
+            return {"total_loss": loss.detach(), **dk_metrics}
+    else:
+        def micro_batch(images, gt_boxes, gt_classes, gt_mask):
+            if dtype is not None:
+                images = images.to(dtype)
+            pred = model(images, data_format, train=True)
+            out, aux = yolo_loss(pred, gt_boxes, gt_classes, gt_mask, config.loss)
+            out.total_loss.backward()
+            return collect_step_metrics(config, out, aux, pred)
 
     def batch_grads(images, gt_boxes, gt_classes, gt_mask):
         if accum == 1:
@@ -315,7 +329,8 @@ def make_train_step(
     """The train step: (TrainState, images, gt_boxes, gt_classes, gt_mask)
     → (TrainState, metrics).
 
-    Per step: zero grads → forward(train=True) → ``yolo_loss`` → backward
+    Per step: zero grads → forward(train=True) → ``yolo_loss`` (or, with
+    ``config.darknet_loss``, the raw head convs → the darknet-exact loss) → backward
     (per micro-batch, see :func:`make_batch_grads`) → clip → optimizer step
     at the scheduled lr → ``clamp_running_vars`` → step += 1 → EMA.  The
     state is updated in place and returned; the metrics are device tensors.
