@@ -147,7 +147,34 @@ result line:
    steps/s, ms per step by span (data wait, the synchronized step, the
    loss inside it, the rest), the loss's share of the step, peak memory,
    and the card's name and power limit.
-9. card   — `nvidia-smi --query-gpu=name,power.limit` as it prints it.
+9. deploy — yolov4-csp at 608² deployed as a user would (ROADMAP A11c),
+   and ROADMAP A4's node kinds on the card.  The seed-0 model with seeded
+   BN statistics goes to a .weights file; tool_main fold-weights (in this
+   process) writes the BN-free pair, whose cfg must hold no
+   batch_normalize.  Both pairs load through zoo.load_darknet_model
+   (seconds timed: the .weights load plus build); their f32 forwards at
+   b2 must agree within 1e-4 · max|unfolded|.  tool_main export --serving
+   --dtype bfloat16 --batch 8 --size 608 --device cuda writes an artifact of each
+   pair, and DetectionService.from_artifact loads it (seconds timed).  On
+   one batch of 8 frames each artifact's outputs must equal its live
+   model's bf16 forward bit for bit (or, should the exported graph change
+   an op, lie within 1e-3 · max|live|; the line says which), and the
+   valid masks, classes and instances after NMS must be identical.  Each
+   of the four services (live, folded, artifact, folded artifact) then
+   answers 32 requests from 8 threads, B1's counters zeroed right before
+   and read right after: each kernel once per served batch.  Then
+   detect_main --artifact in this process on phase cli's kind of dataset
+   (one launch of each kernel per batch) and serve_main --artifact as a
+   subprocess (16 POSTs from 4 threads, exit 0 on SIGINT).  Last, the f32
+   forwards of yolov2.cfg (Reorg2D, [region]) and cspx-p7-mish.cfg
+   (DarknetSam) at 128² on the card against the CPU (1e-4 · max|ref|),
+   and detect_main on yolov2.cfg at its own 416² from a seed-0 .weights
+   file, one launch of each kernel per batch.  The line gives, for each
+   service, img/s, p50/p95, the forward's ms (CUDA events) and its device
+   ms and kernels (profiler), and the load seconds, and each exported
+   program's aten calls; the workspace,
+   build/chip_smoke_deploy/, is removed at the end.
+10. card  — `nvidia-smi --query-gpu=name,power.limit` as it prints it.
 
 The line before the last lists the kernels; the last line is
 {"ok": true, "device": {...}}.  TF32 is switched off for every f32
@@ -156,6 +183,7 @@ comparison on the card (cuDNN would otherwise run f32 convs in TF32).
 
 from __future__ import annotations
 
+import collections
 import io
 import json
 import os
@@ -228,6 +256,14 @@ DK_SAVED_BUDGET = 56e9        # saved activations a batch may hold on the card's
 TRAIN_BATCH = 16        # bench.py:20; fits the card's 80 GB (PERF.md)
 TRAIN_MAX_GT = 32       # bench.py:117
 DEVICE = "cuda"         # the cli, wgrad and train phases' device
+DEPLOY_ROOT = os.path.join(REPO, "build", "chip_smoke_deploy")  # removed at the end
+DEPLOY_FOLD_BATCH = 2        # folded vs unfolded f32 forward at 608²
+DEPLOY_FOLD_TOL = 1e-4       # ... max|Δ| / max|unfolded|
+DEPLOY_ARTIFACT_TOL = 1e-3   # artifact vs live bf16, should the program not be bit-identical
+DEPLOY_REQUESTS, DEPLOY_CLIENTS = 32, 8
+A4_MODELS = (("yolov2", 128), ("cspx-p7-mish", 128))  # card vs CPU; p7's stride is 128
+YOLOV2_CFG = os.path.join(REPO, "cfg", "darknet", "yolov2.cfg")
+YOLOV2_SIZE = 416            # yolov2.cfg's own input size
 
 
 def emit(obj) -> None:
@@ -1102,8 +1138,9 @@ def cli_workspace(root, seed=0):
     return config, boxes
 
 
-def serve_subprocess(config, weights, images) -> dict:
-    """serve_main as a user starts it: POST CLI_POSTS images from
+def serve_subprocess(config, model_args, images) -> dict:
+    """serve_main as a user starts it, the model from ``model_args``
+    (``--weights`` or ``--artifact``): POST CLI_POSTS images from
     CLI_CLIENTS threads, check every answer, read /stats, stop it with
     SIGINT.  Returns the numbers of the run."""
     import queue
@@ -1113,7 +1150,7 @@ def serve_subprocess(config, weights, images) -> dict:
     with open(log, "w") as err:
         proc = subprocess.Popen(
             [sys.executable, "-m", "yolodl_torch.cli.serve_main", "--config-file", config,
-             "--weights", weights, "--port", "0", "--batch-size", str(BATCH), *CLI_DEVICE_ARGS],
+             *model_args, "--port", "0", "--batch-size", str(BATCH), *CLI_DEVICE_ARGS],
             stdout=subprocess.PIPE, stderr=err, text=True, cwd=REPO,
             env={**os.environ, "PYTHONPATH": REPO})
     lines: "queue.Queue[str]" = queue.Queue()
@@ -1360,7 +1397,7 @@ def phase_cli(iou):
 
         src = [(os.path.join(root, "images", f"{i:03d}.jpg"), *CLI_SIZES[i % len(CLI_SIZES)])
                for i in range(CLI_IMAGES)]
-        served = serve_subprocess(config, weights, src)
+        served = serve_subprocess(config, ["--weights", weights], src)
         card = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, timeout=60, check=True).stdout.strip()
@@ -2192,6 +2229,320 @@ def phase_darknet_loss(iou, train_ms) -> dict:
     return {"darknet_train_main": launches}
 
 
+def randomize_bn(model, seed) -> None:
+    """Seeded BN affine and running statistics away from init, so that a
+    fold changes every kernel and bias: scale in [0.8, 1.2], bias N(0,
+    0.2), mean N(0, 0.05), var in [0.25, 0.45], about the third of its
+    input's variance that a uniform-init conv passes on, which keeps the
+    flagship's logits near unit scale at 608² (var in [0.1, 0.3] lets
+    them grow by orders of magnitude, and f32 rounding with them)."""
+    from yolodl_torch.models.builder import DarkBatchNorm
+
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, DarkBatchNorm):
+                c = m.mean.numel()
+                for t, v in ((m.scale, rng.uniform(0.8, 1.2, c)), (m.bias, rng.normal(0, 0.2, c)),
+                             (m.mean, rng.normal(0, 0.05, c)), (m.var, rng.uniform(0.25, 0.45, c))):
+                    t.copy_(torch.from_numpy(v.astype(np.float32)))
+
+
+def quiet(main, argv) -> list:
+    """``main(argv)`` with its stdout captured; returns its lines."""
+    import contextlib
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        main(argv)
+    return out.getvalue().splitlines()
+
+
+def serve_requests(svc, frames, kernels) -> dict:
+    """``svc`` answers DEPLOY_REQUESTS requests from DEPLOY_CLIENTS threads
+    over ``frames``, B1's counters zeroed right before and read right after:
+    each kernel must launch once per served batch."""
+    per = DEPLOY_REQUESTS // DEPLOY_CLIENTS
+    results, errors = [None] * DEPLOY_REQUESTS, []
+
+    def client(i):
+        try:
+            for j in range(per):
+                results[per * i + j] = svc.submit_u8(frames[(i + j) % len(frames)])
+        except Exception as e:  # reported below
+            errors.append(repr(e))
+
+    for fn in kernels:
+        fn.launches = 0
+    svc.start()
+    try:
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(i,)) for i in range(DEPLOY_CLIENTS)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=300)
+        wall = time.perf_counter() - t0
+        snap = svc.stats.snapshot(svc.batch_size)
+    finally:
+        svc.shutdown()
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    if errors or any(r is None for r in results) or snap["errors"]:
+        raise AssertionError(f"serving failed: {errors[:3]} {snap}")
+    if set(launches.values()) != {snap["batches"]} or snap["batches"] == 0:
+        raise AssertionError(f"launches {launches} != served batches {snap['batches']}")
+    lat = snap.get("latency_ms", {})
+    return {"img_per_s": DEPLOY_REQUESTS / wall, "p50_ms": lat.get("p50"),
+            "p95_ms": lat.get("p95"), "batches": snap["batches"],
+            "mean_batch_fill": snap["mean_batch_fill"],
+            "detections": sum(len(r) for r in results), "launches": launches}
+
+
+def a4_card_vs_cpu(name, size) -> dict:
+    """The f32 forward of cfg/darknet/<name>.cfg cut to size² on the card
+    and on the CPU, the same seed-0 weights, one image: within 1e-4 ·
+    max|ref| + 1e-6, as the flagship in phase serve."""
+    import re
+
+    from yolodl_torch.config import darknet_cfg as dk
+    from yolodl_torch.graph.from_darknet import graph_from_darknet
+    from yolodl_torch.models import GraphModel
+
+    with open(os.path.join(REPO, "cfg", "darknet", f"{name}.cfg")) as f:
+        text = f.read()
+    text = re.sub(r"(?m)^height *= *\d+", f"height={size}", text)
+    text = re.sub(r"(?m)^width *= *\d+", f"width={size}", text)
+    graph = graph_from_darknet(dk.Darknet.from_str(text))
+    kinds = sorted({n.config.kind for n in graph.nodes.values()})
+    x = torch.from_numpy(np.random.default_rng(4).uniform(0, 1, (1, 3, size, size))
+                         .astype(np.float32))
+    out = {"size": size, "node_kinds": kinds}
+    with torch.inference_mode():
+        cpu_model = GraphModel(graph, device="cpu")
+        ref = cpu_model(x)
+        card_model = GraphModel(graph, device=DEVICE)
+        card_model.load_state_dict(cpu_model.state_dict())
+        got = card_model(x.to(DEVICE))
+    for f in ("cycxhw", "obj_logit", "class_logit"):
+        r, o = getattr(ref, f), getattr(got, f).cpu()
+        scale, err = float(r.abs().max()), float((o - r).abs().max())
+        out[f"{f}_max_abs_err"], out[f"{f}_max_abs"] = err, scale
+        if not (err <= 1e-4 * scale + 1e-6 and torch.isfinite(o).all()):
+            raise AssertionError(f"{name} f32 forward {f}: card vs cpu max|d|={err} "
+                                 f"(max {scale})")
+    return out
+
+
+def phase_deploy(iou) -> dict:
+    """Deployment of yolov4-csp-608 from a folded .weights pair and an
+    exported artifact, and ROADMAP A4's node kinds on the card; see the
+    module docstring.  Returns B1's launches per path."""
+    import shutil
+
+    from yolodl_torch.bridge import params_to_jax
+    from yolodl_torch.cli import detect_main, tool_main
+    from yolodl_torch.config import darknet_cfg as dk
+    from yolodl_torch.loss import nms as nms_mod
+    from yolodl_torch.models import zoo
+    from yolodl_torch.models.builder import DarkBatchNorm
+    from yolodl_torch.models.weights import save_darknet_weights
+    from yolodl_torch.serve import DetectionService
+
+    root = DEPLOY_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    kernels = (iou.nms_conflict_bits, iou.nms_keep_from_bits)
+    fields = ("cycxhw", "obj_logit", "class_logit")
+    line = {"phase": "deploy", "model": "yolov4-csp", "image_size": IMAGE_SIZE, "batch": BATCH}
+    try:
+        # the seed-0 flagship with seeded BN statistics, as a .weights file
+        darknet = dk.Darknet.load(CFG)
+        kind, beta = nms_mod.nms_options_from_darknet(darknet)
+        model = zoo.load_darknet_model(CFG, seed=0, device=DEVICE)
+        randomize_bn(model, 0)
+        weights = os.path.join(root, "yolov4-csp.weights")
+        save_darknet_weights(darknet, *params_to_jax(model.state_dict()), weights)
+        del model
+
+        # fold: tool_main fold-weights in this process
+        folded_cfg = os.path.join(root, "yolov4-csp-folded.cfg")
+        folded_weights = os.path.join(root, "yolov4-csp-folded.weights")
+        t0 = time.perf_counter()
+        fold_lines = quiet(tool_main.main, ["fold-weights", CFG, weights, "--out-cfg", folded_cfg,
+                                            "--out-weights", folded_weights])
+        line["fold_s"] = time.perf_counter() - t0
+        line["fold_stdout"] = fold_lines
+        with open(folded_cfg) as f:
+            if "batch_normalize" in f.read():
+                raise AssertionError("the folded cfg still has batch_normalize")
+
+        # both pairs through zoo.load_darknet_model: the .weights load plus build
+        load_s, models = {}, {}
+        for name, (c, w) in (("live", (CFG, weights)), ("folded", (folded_cfg, folded_weights))):
+            t0 = time.perf_counter()
+            models[name] = zoo.load_darknet_model(c, w, device=DEVICE)
+            torch.cuda.synchronize()
+            load_s[name] = time.perf_counter() - t0
+        n_bn = {name: sum(isinstance(m, DarkBatchNorm) for m in m_.modules())
+                for name, m_ in models.items()}
+        if n_bn["folded"] != 0 or n_bn["live"] == 0:
+            raise AssertionError(f"BN layers live/folded: {n_bn}")
+        line["bn_layers"] = n_bn
+        line["weights_mb"] = {"live": os.path.getsize(weights) / 1e6,
+                              "folded": os.path.getsize(folded_weights) / 1e6}
+
+        # folded vs unfolded, f32 at DEPLOY_FOLD_BATCH x 608²
+        x = torch.from_numpy(np.random.default_rng(5).uniform(
+            0, 1, (DEPLOY_FOLD_BATCH, 3, IMAGE_SIZE, IMAGE_SIZE)).astype(np.float32)).to(DEVICE)
+        with torch.inference_mode():
+            ref, got = models["live"](x), models["folded"](x)
+        fold_err = {}
+        for f in fields:
+            r, o = getattr(ref, f), getattr(got, f)
+            fold_err[f] = float((o - r).abs().max()) / float(r.abs().max())
+        line["fold_f32_max_abs_err_of_max"] = fold_err
+        if not all(e <= DEPLOY_FOLD_TOL for e in fold_err.values()):
+            raise AssertionError(f"folded vs unfolded f32 forward: {fold_err}")
+        del x, ref, got
+
+        # export: tool_main export --serving --dtype bfloat16 on each pair
+        arts, export_s = {}, {}
+        for name, (c, w) in (("artifact", (CFG, weights)),
+                             ("folded_artifact", (folded_cfg, folded_weights))):
+            arts[name] = os.path.join(root, name)
+            t0 = time.perf_counter()
+            quiet(tool_main.main, ["export", c, arts[name], "--weights", w, "--serving",
+                                   "--dtype", "bfloat16", "--batch", str(BATCH),
+                                   "--size", str(IMAGE_SIZE), "--device", DEVICE])
+            export_s[name] = time.perf_counter() - t0
+        line["export_s"] = export_s
+        # what the exported programs run: their aten calls (the .to casts
+        # come with a _assert_tensor_metadata node each, which launches nothing)
+        line["artifact_graph"] = {}
+        for name, path in arts.items():
+            calls = collections.Counter(
+                str(n.target) for n in torch.export.load(os.path.join(path, "model.pt2"))
+                .graph.nodes if n.op == "call_function")
+            line["artifact_graph"][name] = {"aten_calls": sum(calls.values()),
+                                            "top": calls.most_common(6)}
+        line["artifact_mb"] = {n: os.path.getsize(os.path.join(a, "model.pt2")) / 1e6
+                               for n, a in arts.items()}
+
+        # the four services: live, folded, and each artifact (from_artifact
+        # loads the program: its load seconds)
+        nms = dict(window_ms=10.0, nms_kind=kind, nms_beta=beta, device=DEVICE)
+        svcs = {name: DetectionService(models[name], image_size=IMAGE_SIZE, batch_size=BATCH,
+                                       **nms) for name in ("live", "folded")}
+        for name, path in arts.items():
+            t0 = time.perf_counter()
+            svcs[name] = DetectionService.from_artifact(path, **nms)
+            torch.cuda.synchronize()
+            load_s[name] = time.perf_counter() - t0
+            if (svcs[name].batch_size, svcs[name].image_size) != (BATCH, IMAGE_SIZE):
+                raise AssertionError(f"{name}: batch/size {svcs[name].batch_size}, "
+                                     f"{svcs[name].image_size}")
+        line["load_s"] = load_s
+        line["warmup_s"] = {name: svc.warmup() for name, svc in svcs.items()}
+
+        # one batch of frames through each: artifact = live (bf16), the same
+        # instances after NMS; then each forward's time and profile
+        frames = [np.random.default_rng(i).integers(0, 256, (IMAGE_SIZE, IMAGE_SIZE, 3),
+                                                    dtype=np.uint8) for i in range(BATCH)]
+        stacked = torch.from_numpy(np.stack(frames)).to(DEVICE)
+        forward_ms, profiled, equal, posts = {}, {}, {}, {}
+        with torch.inference_mode():
+            preds = {name: svc.forward(stacked) for name, svc in svcs.items()}
+            for art, live in (("artifact", "live"), ("folded_artifact", "folded")):
+                same = all(torch.equal(getattr(preds[art], f), getattr(preds[live], f))
+                           for f in fields)
+                errs = {f: float((getattr(preds[art], f).float() - getattr(preds[live], f).float())
+                                 .abs().max()) / float(getattr(preds[live], f).float().abs().max())
+                        for f in fields}
+                equal[art] = {"bit_identical": same, "max_abs_err_of_max": errs}
+                if not same and not all(e <= DEPLOY_ARTIFACT_TOL for e in errs.values()):
+                    raise AssertionError(f"{art} vs {live}: {errs}")
+            for name, svc in svcs.items():
+                posts[name] = svc.postprocess(preds[name])
+            for art, live in (("artifact", "live"), ("folded_artifact", "folded")):
+                for f in ("valid", "classes", "instances"):
+                    if not torch.equal(getattr(posts[art], f), getattr(posts[live], f)):
+                        raise AssertionError(f"{art} and {live}: {f} differ after NMS")
+            kept = {name: int(p.valid.sum()) for name, p in posts.items()}
+            for name, svc in svcs.items():
+                forward_ms[name] = median_ms(lambda: svc.forward(stacked), n=20)
+                try:  # auxiliary: a profiler that sees no device time is not a failure
+                    profiled[name] = profile_forward(svc, stacked)
+                except Exception as e:
+                    profiled[name] = {"profile": f"not measured: {type(e).__name__}: {e}"}
+        line.update(artifact_vs_live=equal, kept_detections=kept, forward_ms=forward_ms,
+                    forward_profile=profiled)
+
+        # serving: 32 requests from 8 threads through each service
+        line["serve"] = {name: serve_requests(svc, frames, kernels)
+                         for name, svc in svcs.items()}
+        del svcs, preds, posts, models
+        torch.cuda.empty_cache()
+
+        # the artifact CLIs on phase cli's kind of dataset
+        config, _ = cli_workspace(root)
+        batches = -(-CLI_IMAGES // BATCH)
+        for fn in kernels:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        detect_lines = quiet(detect_main.main, ["--config-file", config, "--artifact",
+                                                arts["artifact"], *CLI_DEVICE_ARGS])
+        torch.cuda.synchronize()
+        detect_s = time.perf_counter() - t0
+        detect_launches = {fn.__name__: fn.launches for fn in kernels}
+        drawn = len(os.listdir(os.path.join(root, "out")))
+        if set(detect_launches.values()) != {batches} or drawn != CLI_IMAGES:
+            raise AssertionError(f"detect_main --artifact: launches {detect_launches}, "
+                                 f"{drawn} images, {batches} batches")
+        src = [(os.path.join(root, "images", f"{i:03d}.jpg"), *CLI_SIZES[i % len(CLI_SIZES)])
+               for i in range(CLI_IMAGES)]
+        line["detect_artifact"] = {"img_per_s": CLI_IMAGES / detect_s, "stdout": detect_lines,
+                                   "launches": detect_launches}
+        line["serve_main_artifact"] = serve_subprocess(config, ["--artifact", arts["artifact"]],
+                                                       src)
+
+        # A4 on the card: Reorg2D and [region] (yolov2), DarknetSam (cspx-p7-mish)
+        line["a4_card_vs_cpu"] = {name: a4_card_vs_cpu(name, size)
+                                  for name, size in A4_MODELS}
+        # detect_main on yolov2.cfg at its own 416² from a seed-0 .weights file
+        y2_weights = os.path.join(root, "yolov2.weights")
+        y2 = zoo.load_darknet_model(YOLOV2_CFG, seed=0, device=DEVICE)
+        save_darknet_weights(dk.Darknet.load(YOLOV2_CFG), *params_to_jax(y2.state_dict()),
+                             y2_weights)
+        del y2
+        with open(config) as f:
+            text = f.read()
+        y2_config = os.path.join(root, "detect_yolov2.json5")
+        with open(y2_config, "w") as f:
+            f.write(text.replace(CFG, YOLOV2_CFG)
+                    .replace(f"image_size: {IMAGE_SIZE}", f"image_size: {YOLOV2_SIZE}")
+                    .replace(os.path.join(root, "out"), os.path.join(root, "out_yolov2")))
+        for fn in kernels:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        y2_lines = quiet(detect_main.main, ["--config-file", y2_config, "--weights", y2_weights,
+                                            *CLI_DEVICE_ARGS])
+        torch.cuda.synchronize()
+        y2_s = time.perf_counter() - t0
+        y2_launches = {fn.__name__: fn.launches for fn in kernels}
+        drawn = len(os.listdir(os.path.join(root, "out_yolov2")))
+        if set(y2_launches.values()) != {batches} or drawn != CLI_IMAGES:
+            raise AssertionError(f"yolov2 detect_main: launches {y2_launches}, {drawn} images")
+        line["yolov2_detect"] = {"image_size": YOLOV2_SIZE, "img_per_s": CLI_IMAGES / y2_s,
+                                 "stdout": y2_lines, "launches": y2_launches}
+        line["card"] = card_line()
+        emit(line)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {**{f"deploy_serve_{name}": s["launches"] for name, s in line["serve"].items()},
+            "deploy_detect_artifact": detect_launches, "deploy_yolov2_detect": y2_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2217,6 +2568,7 @@ def main() -> int:
     wgrad_launches, wgrad = phase_wgrad()
     train_ms = phase_train()
     by_path.update(phase_darknet_loss(iou, train_ms))
+    by_path.update(phase_deploy(iou))
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

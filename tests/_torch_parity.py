@@ -655,3 +655,65 @@ def write_darknet_train_workspace(root, cfg_text=DARKNET_TRAIN_CFG, size=64, **t
     config["dataset"]["kind"]["image_size"] = size
     (root / "train.json5").write_text(json.dumps(config))
     return path
+
+
+# -- the darknet corpus sweep (test_torch_corpus_*.py), port only
+
+CORPUS_DIR = os.path.join(REPO, "cfg", "darknet")
+# cfgs that reach a node kind of ROADMAP A12 (Linear, rnn, gru, lstm, crnn)
+CORPUS_A12 = ("alexnet.cfg", "crnn.train.cfg", "extraction.conv.cfg", "extraction22k.cfg",
+              "gru.cfg", "lstm.train.cfg", "rnn.cfg", "rnn.train.cfg", "strided.cfg",
+              "t1.test.cfg", "vgg-16.cfg", "yolov3-tiny_occlusion_track.cfg")
+CORPUS_UNPARSABLE = ("resnet152_trident.cfg",)  # its route sizes do not unify
+
+
+def corpus_names():
+    return sorted(os.path.basename(p) for p in os.listdir(CORPUS_DIR) if p.endswith(".cfg"))
+
+
+def corpus_slice(part, parts):
+    """Every ``parts``-th buildable corpus cfg, from ``part``."""
+    names = [n for n in corpus_names() if n not in CORPUS_A12 + CORPUS_UNPARSABLE]
+    return names[part::parts]
+
+
+def corpus_text(name):
+    """The cfg with its input cut to 64² (128² for the p7 models, whose
+    stride is 128), as scripts/corpus_forward_sweep.py shrinks it."""
+    import re
+
+    with open(os.path.join(CORPUS_DIR, name)) as f:
+        text = f.read()
+    size = 128 if "p7" in name else 64
+    text = re.sub(r"(?m)^height *= *\d+", f"height={size}", text)
+    return re.sub(r"(?m)^width *= *\d+", f"width={size}", text)
+
+
+def corpus_forward(name):
+    """Build the port's GraphModel of a corpus cfg and run one eval forward
+    on a seeded input: every tensor node's output must have the graph's
+    shape and the graph's output must be finite."""
+    from yolodl_torch.config import darknet_cfg as t_dk
+    from yolodl_torch.graph.from_darknet import graph_from_darknet
+    from yolodl_torch.models import GraphModel
+
+    darknet = t_dk.Darknet.from_str(corpus_text(name))
+    model = GraphModel(graph_from_darknet(darknet), device="cpu")
+    h, w, c = darknet.net.input_shape_hwc
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(max(darknet.net.time_steps, 1), c, h, w)).astype(np.float32) * 0.1)
+    graph = model.graph
+    keys = tuple(k for k in graph.order if graph.nodes[k].output_shape.is_tensor)
+    with torch.no_grad():
+        outs = model(x, output_keys=keys)
+        final = model(x)
+    for key in keys:
+        dims = graph.nodes[key].output_shape.tensor_shape()
+        got = tuple(outs[key].shape)
+        assert len(got) == len(dims), (name, model._pname[key], got, dims)
+        for d, g in zip(dims, got):
+            assert not d.is_known or d.size == g, (name, model._pname[key], got, dims)
+    fields = [final] if isinstance(final, torch.Tensor) else [
+        final.cycxhw, final.obj_logit, final.class_logit]
+    assert all(bool(torch.isfinite(f).all()) for f in fields), name
+    return final

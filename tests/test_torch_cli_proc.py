@@ -1,6 +1,7 @@
 """The port's inference CLIs as a user starts them, in subprocesses:
 errors end with exit code 1 and one ``error:`` line that says what to do
-(or which ROADMAP item has not been ported), and ``serve_main --device cpu
+(or which ROADMAP item has not been ported; a missing or misused
+``--artifact`` says so), and ``serve_main --device cpu
 --port 0`` answers HTTP requests, then exits 0 on SIGINT."""
 
 import json
@@ -55,7 +56,13 @@ def workspace(tmp_path_factory):
 ERRORS = {
     "bad_config": ("detect_main", "bad.json5", [], "bad.json5:2:33: unexpected ','"),
     "no_device": ("eval_main", "detect.json5", None, "no CUDA device is available"),
-    "artifact": ("serve_main", "detect.json5", ["--artifact", "x"], "ROADMAP A11c"),
+    "artifact": ("serve_main", "detect.json5", ["--artifact", "x"],
+                 "x: no exported artifact directory"),
+    "artifact_weights": ("serve_main", "detect.json5", ["--artifact", "x", "--weights", "w"],
+                         "--artifact bakes the weights in"),
+    "artifact_precision": ("detect_main", "detect.json5",
+                           ["--artifact", "x", "--precision", "bfloat16"],
+                           "--precision does not apply to --artifact runs"),
     "devices": ("detect_main", "detect.json5", ["--devices", "2"], "ROADMAP A14"),
 }
 

@@ -1,0 +1,16 @@
+"""Corpus sweep, part 3 of 3: every third buildable `cfg/darknet/*.cfg`
+(from the 3rd) builds in yolodl_torch and runs one finite eval
+forward at 64² (128² for the p7 models) whose node shapes equal the
+graph's (`_torch_parity.corpus_forward`)."""
+
+import pytest
+import torch
+
+from _torch_parity import corpus_forward, corpus_slice
+
+torch.set_num_threads(2)
+
+
+@pytest.mark.parametrize("name", corpus_slice(2, 3))
+def test_corpus_cfg_runs(name):
+    corpus_forward(name)

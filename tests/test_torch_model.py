@@ -122,7 +122,8 @@ def test_port_imports_neither_jax_nor_reference():
         "    'cli._guard', 'cli._common', 'cli.detect_main', 'cli.eval_main',\n"
         "    'cli.serve_main', 'ops.blocks', 'utils.timing', 'data.mosaic',\n"
         "    'data.pipeline', 'data.tfrecord_cache', 'cli.train_main',\n"
-        "    'loss.darknet_loss')}\n"
+        "    'loss.darknet_loss', 'models.fold', 'models.export', 'parallel.pipeline',\n"
+        "    'cli.tool_main')}\n"
         "missing = sorted(need - set(sys.modules))\n"
         "print(n, bad, missing)\n"
         "sys.exit(1 if bad or missing or n < 50 else 0)\n"

@@ -149,14 +149,19 @@ def test_letterbox_identity_and_resize_match_reference():
         np.testing.assert_array_equal(letterbox_u8(frame, (64, 64)), ref)
 
 
-def test_service_rejections(services):
+def test_service_rejections(services, tmp_path):
+    from yolodl_torch.models.export import export_inference
+
     _, port_svc = services
     with pytest.raises(ValueError):
         port_svc.submit_u8(np.zeros((48, 64, 3), np.float32))
     with pytest.raises(NotImplementedError, match="A14"):
         DetectionService(port_svc.model, device="cpu", devices=2, **KW)
-    with pytest.raises(NotImplementedError, match="A11"):
-        DetectionService.from_artifact("model.serving")
+    # a plain (non-serving) artifact has no uint8 NHWC ingest to serve
+    plain = export_inference(port_svc.model, str(tmp_path / "plain"), batch_size=4,
+                             image_size=64)
+    with pytest.raises(ValueError, match="re-export with --serving"):
+        DetectionService.from_artifact(plain, device="cpu")
     svc = DetectionService(port_svc.model, device="cpu", **KW)
     svc.shutdown()
     with pytest.raises(ServiceShutdownError):

@@ -2,7 +2,8 @@
 
 Counterpart of ``yolodl_tpu/cli/_common.py``: one definition of "config →
 live model" so the entry points cannot drift.  The port's model holds its
-own parameters, so :func:`build_model` returns ``(model, model_path)``.
+own parameters, so :func:`build_model` returns ``(model, model_path)``;
+:func:`load_artifact` loads an exported program in its place.
 """
 
 from __future__ import annotations
@@ -18,11 +19,19 @@ def single_device(n_devices: int) -> None:
             "to yolodl_torch yet (ROADMAP A14); run on one device")
 
 
-def no_artifact(artifact: str) -> None:
-    if artifact:
-        raise NotImplementedError(
-            "--artifact: exported artifacts are not ported to yolodl_torch yet "
-            "(ROADMAP A11c, tool_main/export)")
+def load_artifact(path: str, image_size: int, device):
+    """``--artifact``: the exported program (``models/export.py``) on
+    ``device`` → (infer, meta), its input size checked against the
+    config's dataset."""
+    from ..models.export import load_exported
+
+    infer, meta = load_exported(path, device=device)
+    nhwc = meta.get("data_format") == "NHWC"
+    px = meta["input_shape"][1 if nhwc else -1]
+    if px != image_size:
+        raise ValueError(
+            f"artifact expects {px}px input but the config dataset is {image_size}px")
+    return infer, meta
 
 
 def build_model(config, base_dir: str, weights: str = "", checkpoint: str = "",

@@ -9,8 +9,12 @@ class selection, then draw ground truth (yellow) and predictions
 COCO-format JSON with ``--save-json``.  Drawing is PIL-based.
 
 On a card the NMS is B1's two kernels (``kernels/iou.py``), one launch of
-each per batch.  ``--artifact`` and more than one device are not ported yet
-and raise, naming their ROADMAP items.
+each per batch.  ``--artifact`` runs an exported program (``tool_main
+export``, ``models/export.py``) in place of the model, with the
+reference's rejections: no ``--weights``/``--checkpoint``/``--devices``,
+no ``--precision`` and no multi-device config with it; its batch is the
+artifact's.  More than one device is not ported yet and raises, naming
+ROADMAP A14.
 """
 
 from __future__ import annotations
@@ -37,7 +41,9 @@ def main(argv=None):
                              "is the serving path's production precision "
                              "(params stay f32)")
     parser.add_argument("--artifact", default="",
-                        help="an exported artifact dir (not ported yet)")
+                        help="run an exported artifact dir (tool_main "
+                             "export) instead of building the model; "
+                             "--weights/--checkpoint/--devices do not apply")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default; raises without a card) or cpu")
     args = parser.parse_args(argv)
@@ -54,18 +60,37 @@ def main(argv=None):
     from ..loss import non_max_suppression, yolo_inference
     from ..loss.inference import to_host_detections
     from ..train.logging import draw_boxes_on_image
-    from ._common import build_model, nms_options, no_artifact, single_device
+    from ._common import build_model, load_artifact, nms_options, single_device
 
-    no_artifact(args.artifact)
     config = DetectAppConfig.load(args.config_file)
-    single_device(args.devices or config.n_devices)
-    device = resolve_device(args.device)
-    compute_dtype = compute_dtype_of(args.precision)
     base_dir = os.path.dirname(os.path.abspath(args.config_file))
-
-    model, model_path = build_model(
-        config, base_dir, weights=args.weights, checkpoint=args.checkpoint,
-        device=device)
+    model_path = os.path.join(base_dir, config.model_file)
+    compute_dtype = compute_dtype_of(args.precision)
+    artifact_infer = None
+    if args.artifact:
+        if args.weights or args.checkpoint or args.devices:
+            raise ValueError(
+                "--artifact bakes the weights in and fixes the device "
+                "program; --weights/--checkpoint/--devices do not apply")
+        if compute_dtype != torch.float32:
+            raise ValueError(
+                "--precision does not apply to --artifact runs: the "
+                "artifact's compute dtype was fixed at export time")
+        if config.n_devices > 1:
+            raise ValueError(
+                "--artifact runs the exported single-device program; the "
+                f"config's {config.n_devices}-device block does not apply "
+                "(re-export per device or use the live-model path)")
+        device = resolve_device(args.device)
+        artifact_infer, meta = load_artifact(args.artifact, config.dataset.image_size, device)
+        artifact_nhwc = meta.get("data_format") == "NHWC"
+        artifact_dtype = getattr(torch, meta["input_dtype"])
+    else:
+        single_device(args.devices or config.n_devices)
+        device = resolve_device(args.device)
+        model, model_path = build_model(
+            config, base_dir, weights=args.weights, checkpoint=args.checkpoint,
+            device=device)
 
     dataset = SanitizedDataset(
         config.dataset.open(base_dir),
@@ -78,13 +103,27 @@ def main(argv=None):
     os.makedirs(config.output_dir, exist_ok=True)
 
     # honor the model cfg's nms_kind + beta_nms (yolo.rs NmsKind; e.g.
-    # yolov4-csp, cspx-p7 declare nms_kind=diounms)
+    # yolov4-csp, cspx-p7 declare nms_kind=diounms; with --artifact the
+    # cfg may be absent and greedy defaults apply)
     nms_kind, nms_beta = nms_options(config, model_path)
+
+    def forward(images: np.ndarray):
+        x = torch.from_numpy(images).to(device)
+        if artifact_infer is None:
+            return model(x.to(compute_dtype))
+        # the loader yields float [0,1] NCHW; a serving artifact ingests
+        # uint8 pixels (its /255 is baked in): round, as the reference does
+        if artifact_dtype == torch.uint8:
+            x = torch.round(x * 255.0).to(torch.uint8)
+        else:
+            x = x.to(artifact_dtype)
+        if artifact_nhwc:
+            x = x.permute(0, 2, 3, 1).contiguous()
+        return artifact_infer(x)
 
     def infer(images: np.ndarray):
         with torch.inference_mode():
-            x = torch.from_numpy(images).to(device).to(compute_dtype)
-            pred = model(x)
+            pred = forward(images)
             nms = non_max_suppression(
                 pred,
                 iou_threshold=config.nms_iou_thresh,
@@ -102,6 +141,11 @@ def main(argv=None):
     ]
 
     batch_size = config.minibatch_size
+    if artifact_infer is not None:
+        batch_size = meta["input_shape"][0]  # the artifact's fixed batch
+        if batch_size != config.minibatch_size:
+            print(f"artifact batch {batch_size} overrides "
+                  f"minibatch_size {config.minibatch_size}")
     records = dataset.records()
     if args.limit:
         records = records[: args.limit]

@@ -10,7 +10,10 @@ warm-up batch, then serves HTTP requests with micro-batching
 ``detect.json5`` schema; the ``input`` dataset block supplies the image size
 and (when present) class names.  ``--port 0`` binds a free port, and the
 line "serving on http://HOST:PORT" names it.  SIGINT ends the server with
-exit code 0.
+exit code 0.  ``--artifact`` serves an exported serving artifact
+(``tool_main export --serving``) through
+``DetectionService.from_artifact``: no model build, batch and size from
+the artifact, the NMS live on B1's kernels.
 """
 
 from __future__ import annotations
@@ -36,7 +39,9 @@ def main(argv=None):
     parser.add_argument("--devices", type=int, default=1,
                         help="serving devices (more than 1 is not ported yet)")
     parser.add_argument("--artifact", default="",
-                        help="an exported serving artifact dir (not ported yet)")
+                        help="serve an exported serving artifact dir "
+                             "(tool_main export --serving) — no model "
+                             "build; batch/size come from the artifact")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default; raises without a card) or cpu")
     args = parser.parse_args(argv)
@@ -44,18 +49,31 @@ def main(argv=None):
     from .._device import resolve_device
     from ..config.app_config import DetectAppConfig
     from ..serve import DetectionService, make_http_server
-    from ._common import build_model, nms_options, no_artifact, single_device
+    from ._common import build_model, nms_options, single_device
 
-    no_artifact(args.artifact)
     config = DetectAppConfig.load(args.config_file)
-    single_device(max(args.devices, config.n_devices))
-    device = resolve_device(args.device)
     base_dir = os.path.dirname(os.path.abspath(args.config_file))
+    model_path = os.path.join(base_dir, config.model_file)
 
     weights = args.weights or config.weights_file
-    model, model_path = build_model(
-        config, base_dir, weights=weights, checkpoint=args.checkpoint,
-        device=device)
+    if args.artifact:
+        if args.weights or args.checkpoint:
+            raise ValueError(
+                "--artifact bakes the weights in; --weights/--checkpoint "
+                "do not apply")
+        if args.devices > 1:
+            raise SystemExit(
+                "--devices > 1 needs live-model serving: the exported "
+                "artifact is a single-device program")
+        device = resolve_device(args.device)
+    else:
+        single_device(max(args.devices, config.n_devices))
+        device = resolve_device(args.device)
+        model, model_path = build_model(
+            config, base_dir, weights=weights, checkpoint=args.checkpoint,
+            device=device)
+    # NMS runs live even with --artifact (only the forward is exported), so
+    # the cfg's nms_kind/beta_nms apply either way
     nms_kind, nms_beta = nms_options(config, model_path)
 
     class_names = None
@@ -67,18 +85,33 @@ def main(argv=None):
         with open(classes_path) as f:
             class_names = [ln.strip() for ln in f if ln.strip()]
 
-    service = DetectionService(
-        model,
-        image_size=config.dataset.image_size,
-        batch_size=args.batch_size,
-        window_ms=args.window_ms,
-        nms_iou_thresh=config.nms_iou_thresh,
-        nms_conf_thresh=config.nms_conf_thresh,
-        nms_kind=nms_kind,
-        nms_beta=nms_beta,
-        class_names=class_names,
-        device=device,
-    )
+    if args.artifact:
+        service = DetectionService.from_artifact(
+            args.artifact,
+            window_ms=args.window_ms,
+            nms_iou_thresh=config.nms_iou_thresh,
+            nms_conf_thresh=config.nms_conf_thresh,
+            nms_kind=nms_kind,
+            nms_beta=nms_beta,
+            class_names=class_names,
+            device=device,
+        )
+        if service.batch_size != args.batch_size:
+            print(f"artifact batch {service.batch_size} overrides "
+                  f"--batch-size {args.batch_size}")
+    else:
+        service = DetectionService(
+            model,
+            image_size=config.dataset.image_size,
+            batch_size=args.batch_size,
+            window_ms=args.window_ms,
+            nms_iou_thresh=config.nms_iou_thresh,
+            nms_conf_thresh=config.nms_conf_thresh,
+            nms_kind=nms_kind,
+            nms_beta=nms_beta,
+            class_names=class_names,
+            device=device,
+        )
     print(f"compiling batch={service.batch_size} "
           f"size={service.image_size} ...", flush=True)
     secs = service.warmup()

@@ -15,13 +15,24 @@ normalizes with batch statistics, and the new running statistics, which the
 reference returns as ``new_state``, are written into the BN buffers in
 place.  The mode is that keyword, never ``nn.Module.training``.
 
-The node kinds of the darknet YOLO cfgs and of the NEWSLAB models are
-ported: Input, ConvBn2D, Conv2D, DeconvBn2D, DarkCsp2D, SppCsp2D,
-DarknetRoute, DarknetShortcut, MaxPool (max and avg), UpSample2D, Sum2D,
-Concat2D, DynamicPad2D, Detect2D and MergeDetect2D.  Building a graph with
-any other kind raises ``NotImplementedError`` naming its ROADMAP item.  The
+Every node kind but the recurrent and dense ones is ported: Input,
+ConvBn2D, Conv2D, DeconvBn2D, DarkCsp2D, SppCsp2D, DarknetRoute,
+DarknetShortcut, DarknetSam, DarknetScaleChannels, Reorg2D (plain, reverse
+and old), MaxPool (max and avg), GlobalAvgPool2D, UpSample2D, Sum2D,
+Concat2D, DynamicPad2D, Identity, Dropout, Softmax, Detect2D,
+MergeDetect2D and Yolov1Detection.  Building a graph with Linear or a
+recurrent kind raises ``NotImplementedError`` naming ROADMAP A12.  The
 reference's layout rewrites (``spd_stem``, ``fold_region``) are not
 ported: the port computes as the reference does with ``spd_stem="off"``.
+
+Every reshape of the reference reads NHWC; the port's NCHW forms keep the
+same element order: Softmax and GlobalAvgPool2D reduce dim 1 and dims 2-3,
+a scale_channels scale is ``[b, c, 1, 1]`` (SE) or ``[b, 1, h, w]``
+(scale_wh), Yolov1Detection flattens CHW without a transpose, and Reorg2D
+is ``ops/simple.py`` ``space_to_depth``/``depth_to_space`` (REORG_OLD
+reinterprets the NCHW buffer, which the port already holds).  Dropout
+draws its mask from the ``generator`` given to ``forward`` (the reference's
+``rng``), node by node in graph order; without one it is the identity.
 
 ``remat="blocks"`` is the reference's: every ConvBn2D, DeconvBn2D,
 DarkCsp2D and SppCsp2D node runs under ``torch.utils.checkpoint`` (non
@@ -60,9 +71,11 @@ _NOT_PORTED = {
 }
 
 _PORTED = (cfg.Input, cfg.ConvBn2D, cfg.Conv2D, cfg.DeconvBn2D, cfg.DarkCsp2D,
-           cfg.SppCsp2D, cfg.DarknetRoute, cfg.DarknetShortcut, cfg.MaxPool,
-           cfg.UpSample2D, cfg.Sum2D, cfg.Concat2D, cfg.DynamicPad2D, cfg.Detect2D,
-           cfg.MergeDetect2D)
+           cfg.SppCsp2D, cfg.DarknetRoute, cfg.DarknetShortcut, cfg.DarknetSam,
+           cfg.DarknetScaleChannels, cfg.Reorg2D, cfg.MaxPool, cfg.GlobalAvgPool2D,
+           cfg.UpSample2D, cfg.Sum2D, cfg.Concat2D, cfg.DynamicPad2D, cfg.Identity,
+           cfg.Dropout, cfg.Softmax, cfg.Detect2D, cfg.MergeDetect2D,
+           cfg.Yolov1Detection)
 
 # node kinds with parameters whose apply returns (output, new BN state)
 _BN_KINDS = (cfg.ConvBn2D, cfg.DeconvBn2D, cfg.DarkCsp2D, cfg.SppCsp2D)
@@ -75,6 +88,33 @@ def _detach(out):
     return dataclasses.replace(out, **{
         f.name: getattr(out, f.name).detach() for f in dataclasses.fields(out)
         if isinstance(getattr(out, f.name), Tensor)})
+
+
+def _reorg(x: Tensor, layer) -> Tensor:
+    """darknet reorg on NCHW.  REORG_OLD reinterprets the NCHW buffer as
+    ``[c/s², h·s, w·s]``, applies space-to-depth and reinterprets the result
+    as ``[c·s², h/s, w/s]`` (blas.c reorg_cpu with the input's dims), so it
+    reshapes the port's NCHW tensor directly."""
+    s = layer.stride
+    b, c, h, w = x.shape
+    if layer.old and not layer.reverse:
+        out = simple.space_to_depth(x.reshape(b, c // (s * s), h * s, w * s), s)
+        return out.reshape(b, c * s * s, h // s, w // s)
+    if layer.reverse:
+        return simple.depth_to_space(x, s)
+    return simple.space_to_depth(x, s)
+
+
+def _yolov1_detection(h: Tensor, layer) -> Tensor:
+    """darknet [detection]: the CHW-flat activation (NCHW flattens to it
+    as it is), with an optional per-cell softmax over the leading S²·C class
+    block (detection_layer.c:9-17); confidences and boxes are untouched."""
+    h = h.reshape(h.shape[0], -1)
+    if layer.softmax:
+        n_cls = layer.side * layer.side * layer.classes
+        cls = torch.softmax(h[:, :n_cls].reshape(h.shape[0], -1, layer.classes), dim=-1)
+        h = torch.cat([cls.reshape(h.shape[0], n_cls), h[:, n_cls:]], dim=-1)
+    return h
 
 
 def module_key(path: str) -> str:
@@ -221,7 +261,7 @@ class GraphModel(nn.Module):
             node = graph.nodes[key]
             layer = node.config
             if not isinstance(layer, _PORTED):
-                item = _NOT_PORTED.get(type(layer), "A4 (model node kinds)")
+                item = _NOT_PORTED.get(type(layer), "A12 (other workloads)")
                 raise NotImplementedError(
                     f"{layer.kind} is not ported to yolodl_torch yet "
                     f"(ROADMAP {item})")
@@ -303,7 +343,8 @@ class GraphModel(nn.Module):
         return nodes
 
     def forward(self, x: Tensor, data_format: str = "NCHW", *, train: bool = False,
-                output_keys: Optional[Tuple[int, ...]] = None):
+                output_keys: Optional[Tuple[int, ...]] = None,
+                generator: Optional[torch.Generator] = None):
         """Forward → the graph output, a MergedDetection for YOLO.
 
         ``train=False`` normalizes BN with the running statistics.
@@ -319,6 +360,9 @@ class GraphModel(nn.Module):
         need (:meth:`_nodes_for`): given the raw head convs
         (``graph.detect_head_input_keys()``), the decode and merge tail is
         skipped, as the reference's jit drops it as dead code.
+
+        ``generator`` (the reference's ``rng``) draws the Dropout masks when
+        ``train=True``; without it Dropout passes its input through.
         """
         run = None if output_keys is None else self._nodes_for(tuple(output_keys), train)
         if data_format == "NHWC":
@@ -406,6 +450,34 @@ class GraphModel(nn.Module):
             elif isinstance(layer, cfg.MergeDetect2D):
                 outputs[key] = detect.merge_detections(
                     [outputs[k] for k in ik.iter_keys()])
+            elif isinstance(layer, cfg.DarknetSam):
+                a, b = (outputs[k] for k in ik.iter_keys())
+                outputs[key] = a * b
+            elif isinstance(layer, cfg.DarknetScaleChannels):
+                # scale is [b, c, 1, 1] (SE) or [b, 1, h, w] (scale_wh)
+                scale, target = (outputs[k] for k in ik.iter_keys())
+                outputs[key] = scale * target
+            elif isinstance(layer, cfg.Reorg2D):
+                outputs[key] = _reorg(outputs[ik.single_key], layer)
+            elif isinstance(layer, cfg.GlobalAvgPool2D):
+                # darknet avgpool keeps a 1x1 map
+                outputs[key] = torch.mean(outputs[ik.single_key], dim=(2, 3), keepdim=True)
+            elif isinstance(layer, cfg.Identity):
+                outputs[key] = outputs[ik.single_key]
+            elif isinstance(layer, cfg.Dropout):
+                h = outputs[ik.single_key]
+                if train and generator is not None:
+                    keep = 1.0 - layer.probability
+                    mask = torch.rand(h.shape, generator=generator,
+                                      device=generator.device).to(h.device) < keep
+                    h = torch.where(mask, h / keep, torch.zeros_like(h))
+                outputs[key] = h
+            elif isinstance(layer, cfg.Softmax):
+                # over channels: dim 1 of NCHW, the last dim of a flat [b, n]
+                h = outputs[ik.single_key]
+                outputs[key] = torch.softmax(h, dim=1 if h.dim() == 4 else -1)
+            elif isinstance(layer, cfg.Yolov1Detection):
+                outputs[key] = _yolov1_detection(outputs[ik.single_key], layer)
             else:  # pragma: no cover - __init__ rejects every other kind
                 raise NotImplementedError(layer.kind)
 

@@ -223,3 +223,22 @@ def merge_detections(heads: Sequence[DenseDetection]) -> MergedDetection:
         uncertainty=torch.cat(uncs, dim=1) if uncs else None,
         sigmas=torch.cat(sigs, dim=1) if sigs else None,
     )
+
+
+def instance_to_flat(infos: Sequence[DetectionInfo], layer: int, anchor, row, col):
+    """(layer, anchor, row, col) → flat index (instances_to_flats parity,
+    merged_dense_detection.rs:417).  anchor/row/col may be tensors."""
+    info = infos[layer]
+    return info.flat_begin + (anchor * info.feature_h + row) * info.feature_w + col
+
+
+def flat_to_instance(infos: Sequence[DetectionInfo], flat: int):
+    """flat index → (layer, anchor, row, col) (flats_to_instances parity,
+    merged_dense_detection.rs:384).  Python ints (host-side debugging)."""
+    for layer, info in enumerate(infos):
+        if info.flat_begin <= flat < info.flat_end:
+            local = flat - info.flat_begin
+            anchor, rest = divmod(local, info.feature_h * info.feature_w)
+            row, col = divmod(rest, info.feature_w)
+            return layer, anchor, row, col
+    raise IndexError(f"flat index {flat} out of range")

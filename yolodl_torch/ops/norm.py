@@ -78,3 +78,64 @@ def clamp_running_var(
     if var_max is not None:
         var = torch.clamp(var, max=var_max)
     return {**state, "var": var}
+
+
+def fold_batch_norm(
+    params: Dict[str, Tensor],
+    state: Dict[str, Tensor],
+    conv_w: Tensor,
+    conv_b: Optional[Tensor],
+    eps: float = DEFAULT_EPS,
+) -> Tuple[Tensor, Tensor]:
+    """Fold BN into the preceding conv for inference (reference `denormalize`).
+
+    ``conv_w`` is the port's ``[out, in, k, k]``; returns (folded_w,
+    folded_b) such that ``conv(x, fw) + fb == bn(conv(x, w) + b)`` in eval
+    mode.  Valid only for darknet's conv→BN→act order (the NEWSLAB default
+    conv→act→BN cannot fold).  ``models/fold.py`` ``fold_conv_bn_arrays``
+    is its numpy form for the file-level fold.
+    """
+    inv = torch.rsqrt(state["var"] + eps)
+    scale = params.get("scale")
+    if scale is not None:
+        inv = inv * scale
+    bias = params.get("bias")
+    if bias is None:
+        bias = torch.zeros_like(state["mean"])
+    folded_w = conv_w * inv.view(-1, *([1] * (conv_w.dim() - 1)))  # over O (dim 0)
+    b0 = conv_b if conv_b is not None else 0.0
+    folded_b = (b0 - state["mean"]) * inv + bias
+    return folded_w, folded_b
+
+
+def _affine(out: Tensor, params: Dict[str, Tensor]) -> Tensor:
+    view = [1, out.shape[1]] + [1] * (out.dim() - 2)
+    scale = params.get("scale")
+    bias = params.get("bias")
+    if scale is not None:
+        out = out * scale.view(view)
+    if bias is not None:
+        out = out + bias.view(view)
+    return out
+
+
+def instance_norm_apply(params: Dict[str, Tensor], x: Tensor, eps: float = 1e-5) -> Tensor:
+    """Instance norm over the spatial dims of NCHW (tch-modules
+    instance_norm.rs equivalent; stateless inference form)."""
+    mean = torch.mean(x, dim=(2, 3), keepdim=True)
+    var = torch.var(x, dim=(2, 3), keepdim=True, unbiased=False)
+    return _affine((x - mean) * torch.rsqrt(var + eps), params)
+
+
+def group_norm_apply(params: Dict[str, Tensor], x: Tensor, num_groups: int,
+                     eps: float = 1e-5) -> Tensor:
+    """Group norm over NCHW (tch-modules group_norm.rs equivalent): the
+    channels split into ``num_groups`` consecutive groups, as the
+    reference's NHWC ``reshape(b, h, w, groups, c // groups)`` does."""
+    b, c, h, w = x.shape
+    if c % num_groups:
+        raise ValueError(f"channels {c} not divisible by groups {num_groups}")
+    g = x.reshape(b, num_groups, c // num_groups, h, w)
+    mean = torch.mean(g, dim=(2, 3, 4), keepdim=True)
+    var = torch.var(g, dim=(2, 3, 4), keepdim=True, unbiased=False)
+    return _affine(((g - mean) * torch.rsqrt(var + eps)).reshape(b, c, h, w), params)

@@ -85,3 +85,23 @@ def dynamic_pad2d(x: Tensor, t: int, b: int, l: int, r: int, kind: str = "zero")
     """Zero/replication/reflection padding (dynamic_pad_nd.rs:11)."""
     mode = {"zero": "constant", "replication": "replicate", "reflection": "reflect"}[kind]
     return F.pad(x, (l, r, t, b), mode=mode)
+
+
+def space_to_depth(x: Tensor, block: int = 2) -> Tensor:
+    """[B, C, H, W] → [B, b·b·C, H/b, W/b], channel index (dy, dx, c): the
+    NCHW form of the reference's NHWC ``space_to_depth`` (ops/spd_stem.py),
+    whose channel index is the same."""
+    b, c, h, w = x.shape
+    x = x.reshape(b, c, h // block, block, w // block, block)  # b c i dy j dx
+    x = x.permute(0, 3, 5, 1, 2, 4)                              # b dy dx c i j
+    return x.reshape(b, block * block * c, h // block, w // block)
+
+
+def depth_to_space(x: Tensor, block: int = 2) -> Tensor:
+    """Inverse of :func:`space_to_depth`: [B, b·b·C, H, W] → [B, C, bH, bW]
+    (darknet's reorg ``reverse``)."""
+    b, c4, h, w = x.shape
+    c = c4 // (block * block)
+    x = x.reshape(b, block, block, c, h, w)                      # b dy dx c i j
+    x = x.permute(0, 3, 4, 1, 5, 2)                              # b c i dy j dx
+    return x.reshape(b, c, h * block, w * block)

@@ -13,8 +13,10 @@ The device program: the u8 NHWC batch is copied into a pinned host buffer
 and uploaded with ``non_blocking``, converted to bf16 and divided by 255
 on the device, then ``model(x,
 data_format="NHWC")``, ``non_max_suppression(class_mode="argmax")`` and
-``yolo_inference``.  On a CUDA device the NMS takes its IoU matrix from the
-hand-written kernel (``kernels/iou.py``).
+``yolo_inference``.  On a CUDA device the NMS runs on B1's two hand-written
+kernels (``kernels/iou.py``).  :meth:`DetectionService.from_artifact`
+serves an exported serving artifact (``models/export.py``) in place of the
+model: its program holds the same ingest, and the NMS stays live.
 
 Coordinates are mapped back to original-image pixels with the inverse
 letterbox transform (detect/src/main.rs:169 Transform::from_sizes_letterbox).
@@ -112,9 +114,12 @@ class _Pending:
 class DetectionService:
     """Keeps a detector warm and serves micro-batched requests.
 
-    ``model`` is a :class:`yolodl_torch.models.YoloModel` on ``device``;
-    ``window_ms`` bounds how long the dispatcher waits to fill a batch.
-    ``device`` defaults to ``"cuda"`` and raises without a card.
+    ``model`` is a :class:`yolodl_torch.models.YoloModel` on ``device``, or
+    None when ``forward_fn`` (u8 NHWC device batch → MergedDetection, e.g. a
+    loaded serving artifact) takes its place, as the reference's
+    ``forward_fn`` does; ``window_ms`` bounds how long the dispatcher waits
+    to fill a batch.  ``device`` defaults to ``"cuda"`` and raises without a
+    card.
     """
 
     def __init__(
@@ -132,16 +137,20 @@ class DetectionService:
         max_queue: int = 256,
         devices: int = 1,
         device="cuda",
+        forward_fn=None,
     ):
         if devices != 1:
             raise NotImplementedError(
                 "multi-device serving is not ported yet (ROADMAP A14)")
         self.device = resolve_device(device)
-        params = list(model.parameters())
+        if (model is None) == (forward_fn is None):
+            raise ValueError("give DetectionService a model or a forward_fn, not both")
+        params = list(model.parameters()) if model is not None else []
         if params and params[0].device.type != self.device.type:
             raise ValueError(
                 f"model lives on {params[0].device}, service on {self.device}")
         self.model = model
+        self._forward_fn = forward_fn
         self.image_size = int(image_size)
         self.batch_size = int(batch_size)
         self.window_s = window_ms / 1e3
@@ -171,9 +180,36 @@ class DetectionService:
             target=self._complete_loop, name="detection-completer", daemon=True)
 
     @classmethod
-    def from_artifact(cls, path: str, **kwargs) -> "DetectionService":
-        raise NotImplementedError(
-            "serving artifacts are not ported yet (ROADMAP A11c, tool_main/export)")
+    def from_artifact(
+        cls,
+        path: str,
+        *,
+        window_ms: float = 5.0,
+        nms_iou_thresh: float = 0.45,
+        nms_conf_thresh: float = 0.25,
+        nms_kind: str = "greedy",
+        nms_beta: float = 0.6,
+        class_names: Optional[List[str]] = None,
+        max_queue: int = 256,
+        device="cuda",
+    ) -> "DetectionService":
+        """Serve an exported *serving* artifact (``tool_main export
+        --serving``): no model-building code on the inference path; image
+        size and batch come from the artifact's fixed input shape.  The
+        artifact must have been exported on ``device``'s type."""
+        from ..models.export import load_exported
+
+        infer, meta = load_exported(path, device=device)
+        if not meta.get("serving"):
+            raise ValueError(
+                f"{path} is a plain inference artifact; serving needs the "
+                "uint8 NHWC ingest baked in — re-export with --serving")
+        batch, size = meta["input_shape"][0], meta["input_shape"][1]
+        return cls(
+            None, image_size=size, batch_size=batch, window_ms=window_ms,
+            nms_iou_thresh=nms_iou_thresh, nms_conf_thresh=nms_conf_thresh,
+            nms_kind=nms_kind, nms_beta=nms_beta, class_names=class_names,
+            max_queue=max_queue, device=device, forward_fn=infer)
 
     # -- device program ----------------------------------------------------
 
@@ -195,6 +231,8 @@ class DetectionService:
 
     def forward(self, images_u8: torch.Tensor):
         """u8 NHWC device batch → MergedDetection."""
+        if self._forward_fn is not None:
+            return self._forward_fn(images_u8)
         x = images_u8.to(COMPUTE_DTYPE) / 255.0
         return self.model(x, data_format="NHWC")
 
