@@ -174,7 +174,39 @@ result line:
    ms and kernels (profiler), and the load seconds, and each exported
    program's aten calls; the workspace,
    build/chip_smoke_deploy/, is removed at the end.
-10. card  — `nvidia-smi --query-gpu=name,power.limit` as it prints it.
+10. classify — the dense and recurrent node kinds and classify_main
+   (ROADMAP A11d + A12).  First the f32 eval forwards of vgg-16 (256²,
+   fc1 32768 -> 4096, 2 images), alexnet (227²), rnn and gru (one time
+   step), lstm.train and crnn.train (one sequence of 576 one-hot bytes)
+   and yolov3-tiny_occlusion_track (416², a sequence of 20 frames), each at
+   its cfg's own size, on the card against the CPU from the same seed-0
+   weights with seeded BN statistics: the output and a classifier's
+   pre-softmax logits within 1e-4 · max|cpu| + 1e-6.  Then classify_main
+   on vgg-16.cfg as a user runs it: a CSV set of 384 synthetic JPEGs
+   (seed 0, 10 colour-coded classes, four sizes letterboxed to 256²) and a
+   JSON5 config (batch 128, the cfg's own; f32; the reference's default
+   Adam) under build/chip_smoke_classify/ (removed at the end), the batch
+   cut only if its saved activations outgrow 56 GB (the line prints the
+   cut and its reason); 6 steps in this process with cuDNN TF32 on, as in
+   a user's process (every loss finite, a checkpoint holding opt/), then
+   --eval --topk 5 (top-5 >= top-1, and the top-1 count equal to the
+   checkpoint's model -> argmax on the same decoded, padded batches).  The
+   line gives steps/s, the decode's ms per step and the synchronized
+   step's (timed from outside the CLI), peak memory, and one step at
+   library level: ms by events, device ms, kernels, the card's idle share.
+   Then lstm.train.cfg at full width through make_classifier_train_step:
+   16 sequences (its batch 128 / subdivisions 8) × 576 time steps of the
+   repo's README.md + SURVEY.md as one-hot bytes, each label the next
+   byte, Adam: 2 warm-up steps, the second profiled (device activity
+   only, counted on the raw kineto events), 3 timed (CUDA events); every loss
+   finite, every parameter changed; step ms, kernels, device ms, idle
+   share, peak memory.  Last, detect_main on
+   yolov3-tiny_occlusion_track.cfg at 416², batch 20 (its time_steps),
+   from a seed-0 .weights file written by the port's saver and read back
+   through zoo.load_darknet_model bit-identical, over 40 frames of one
+   synthetic sequence: B1's counters zeroed right before and read right
+   after, one launch of each kernel per batch; img/s.
+11. card  — `nvidia-smi --query-gpu=name,power.limit` as it prints it.
 
 The line before the last lists the kernels; the last line is
 {"ok": true, "device": {...}}.  TF32 is switched off for every f32
@@ -264,6 +296,26 @@ DEPLOY_REQUESTS, DEPLOY_CLIENTS = 32, 8
 A4_MODELS = (("yolov2", 128), ("cspx-p7-mish", 128))  # card vs CPU; p7's stride is 128
 YOLOV2_CFG = os.path.join(REPO, "cfg", "darknet", "yolov2.cfg")
 YOLOV2_SIZE = 416            # yolov2.cfg's own input size
+CLASSIFY_ROOT = os.path.join(REPO, "build", "chip_smoke_classify")  # removed at the end
+VGG_CFG = os.path.join(REPO, "cfg", "darknet", "vgg-16.cfg")
+LSTM_CFG = os.path.join(REPO, "cfg", "darknet", "lstm.train.cfg")
+OCCLUSION_CFG = os.path.join(REPO, "cfg", "darknet", "yolov3-tiny_occlusion_track.cfg")
+# card vs CPU, f32, each at its cfg's own size and time steps: (cfg, images
+# or sequences); a sequence is time_steps rows (576 for the .train cfgs),
+# occlusion_track's is 20 frames
+CLASSIFY_CARD_VS_CPU = (("vgg-16", 2), ("alexnet", 1), ("rnn", 1), ("gru", 1),
+                        ("lstm.train", 1), ("crnn.train", 1),
+                        ("yolov3-tiny_occlusion_track", 1))
+CLASSIFY_TOL = 1e-4           # card vs CPU: max|d| <= 1e-4 * max|cpu| + 1e-6
+CLASSIFY_CLASSES = 10         # colour-coded classes of the synthetic set
+CLASSIFY_IMAGES = 384         # 3 batches of vgg-16.cfg's batch 128
+CLASSIFY_BATCH = 128
+CLASSIFY_SIZES = [(300, 400), (256, 256), (480, 360), (200, 320)]  # original h x w
+CLASSIFY_STEPS = 6
+LSTM_SEQUENCES = 16           # lstm.train.cfg's batch 128 / subdivisions 8
+LSTM_WARMUP, LSTM_TIMED = 2, 3
+OCCLUSION_FRAMES = 40         # two batches of the cfg's time_steps 20
+OCCLUSION_SIZE = 416
 
 
 def emit(obj) -> None:
@@ -2235,7 +2287,8 @@ def randomize_bn(model, seed) -> None:
     0.2), mean N(0, 0.05), var in [0.25, 0.45], about the third of its
     input's variance that a uniform-init conv passes on, which keeps the
     flagship's logits near unit scale at 608² (var in [0.1, 0.3] lets
-    them grow by orders of magnitude, and f32 rounding with them)."""
+    them grow by orders of magnitude, and f32 rounding with them).  A
+    dense layer's BN has no bias; its draw is made all the same."""
     from yolodl_torch.models.builder import DarkBatchNorm
 
     rng = np.random.default_rng(seed)
@@ -2243,9 +2296,11 @@ def randomize_bn(model, seed) -> None:
         for m in model.modules():
             if isinstance(m, DarkBatchNorm):
                 c = m.mean.numel()
-                for t, v in ((m.scale, rng.uniform(0.8, 1.2, c)), (m.bias, rng.normal(0, 0.2, c)),
+                for t, v in ((m.scale, rng.uniform(0.8, 1.2, c)),
+                             (getattr(m, "bias", None), rng.normal(0, 0.2, c)),
                              (m.mean, rng.normal(0, 0.05, c)), (m.var, rng.uniform(0.25, 0.45, c))):
-                    t.copy_(torch.from_numpy(v.astype(np.float32)))
+                    if t is not None:
+                        t.copy_(torch.from_numpy(v.astype(np.float32)))
 
 
 def quiet(main, argv) -> list:
@@ -2543,6 +2598,433 @@ def phase_deploy(iou) -> dict:
             "deploy_detect_artifact": detect_launches, "deploy_yolov2_detect": y2_launches}
 
 
+def dense_card_vs_cpu(name, count) -> dict:
+    """The f32 eval forward of cfg/darknet/<name>.cfg at its own size and
+    time steps on the card and on the CPU, the same seed-0 weights with
+    seeded BN statistics: ``count`` images (uniform in [0, 1]) or
+    sequences (time-major one-hot bytes of ``time_steps`` rows each; a
+    detector's sequence is ``time_steps`` frames).  The output, and a
+    classifier's pre-softmax logits, within CLASSIFY_TOL · max|cpu| + 1e-6."""
+    from yolodl_torch.config import darknet_cfg as dk
+    from yolodl_torch.graph.from_darknet import graph_from_darknet
+    from yolodl_torch.models import GraphModel
+    from yolodl_torch.train.classifier import _pre_softmax_key
+
+    darknet = dk.Darknet.load(os.path.join(REPO, "cfg", "darknet", f"{name}.cfg"))
+    graph = graph_from_darknet(darknet)
+    h, w, c = darknet.net.input_shape_hwc
+    t = max(darknet.net.time_steps, 1)
+    rng = np.random.default_rng(6)
+    if darknet.net.inputs and not darknet.net.height:
+        rows = np.zeros((t * count, c, 1, 1), np.float32)
+        rows[np.arange(t * count), rng.integers(0, c, t * count)] = 1.0
+        x = torch.from_numpy(rows)
+    else:
+        x = torch.from_numpy(rng.uniform(0, 1, (t * count, c, h, w)).astype(np.float32))
+    cpu_model = GraphModel(graph, device="cpu")
+    randomize_bn(cpu_model, 6)
+    card_model = GraphModel(graph, device=DEVICE)
+    card_model.load_state_dict(cpu_model.state_dict())
+    logits = _pre_softmax_key(cpu_model)
+    keys = tuple(k for k in (logits, cpu_model.output_key) if k is not None)
+    out = {"input": list(x.shape), "parameters": sum(p.numel() for p in cpu_model.parameters()),
+           "kinds": sorted({n.config.kind for n in graph.nodes.values()
+                            if n.config.kind in ("Linear", "DarknetRnn", "DarknetGru",
+                                                 "DarknetLstm", "DarknetCrnn")})}
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        ref = cpu_model(x, output_keys=keys)
+        out["cpu_s"] = time.perf_counter() - t0
+        got = card_model(x.to(DEVICE), output_keys=keys)
+        torch.cuda.synchronize()
+    fields = {}
+    for k in keys:
+        r, o = ref[k], got[k]
+        if isinstance(r, torch.Tensor):
+            fields["logits" if k == logits and k != cpu_model.output_key else "output"] = (r, o)
+        else:
+            fields.update({f: (getattr(r, f), getattr(o, f))
+                           for f in ("cycxhw", "obj_logit", "class_logit")})
+    for f, (r, o) in fields.items():
+        o = o.cpu()
+        scale, err = float(r.abs().max()), float((o - r).abs().max())
+        out[f"{f}_max_abs_err"], out[f"{f}_max_abs"] = err, scale
+        if not (err <= CLASSIFY_TOL * scale + 1e-6 and torch.isfinite(o).all()):
+            raise AssertionError(f"{name} f32 forward {f}: card vs cpu max|d|={err} "
+                                 f"(max {scale})")
+    del cpu_model, card_model, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def classify_workspace(root, batch) -> str:
+    """CLASSIFY_IMAGES JPEGs at CLASSIFY_SIZES in turn, each a noisy field
+    of one of CLASSIFY_CLASSES colours (seed 0), as a CSV-labelled folder,
+    and root/classify.json5 for vgg-16.cfg at ``batch``, f32, the
+    reference's default optimizer (Adam, β1 0.937, lr 1e-3).  Returns the
+    config's path."""
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    palette = rng.integers(0, 256, (CLASSIFY_CLASSES, 3))
+    names = [f"colour{i}" for i in range(CLASSIFY_CLASSES)]
+    os.makedirs(os.path.join(root, "images"))
+    rows = ["image_file,class_name"]
+    for i in range(CLASSIFY_IMAGES):
+        h, w = CLASSIFY_SIZES[i % len(CLASSIFY_SIZES)]
+        label = int(rng.integers(CLASSIFY_CLASSES))
+        pixels = palette[label] + rng.integers(-40, 41, (h, w, 3))
+        Image.fromarray(np.clip(pixels, 0, 255).astype(np.uint8)).save(
+            os.path.join(root, "images", f"{i:04d}.jpg"), quality=90)
+        rows.append(f"{i:04d}.jpg,{names[label]}")
+    with open(os.path.join(root, "labels.csv"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    with open(os.path.join(root, "classes.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    config = os.path.join(root, "classify.json5")
+    with open(config, "w") as f:
+        f.write(f"""// vgg-16 at its own 256x256 on a synthetic colour-coded set
+{{
+  version: "0.1.0",
+  model: {{kind: "Darknet", cfg_file: "{VGG_CFG}",}},
+  dataset: {{image_dir: "images", label_file: "labels.csv", classes_file: "classes.txt",}},
+  logging: {{dir: "logs",}},
+  training: {{batch_size: {batch}, precision: "float32",}},  // Adam, the defaults
+}}
+""")
+    return config
+
+
+def step_profile(step, n_timed) -> dict:
+    """One call of ``step()`` under torch.profiler with the device activity
+    only, its kernels and their device ms counted on the raw kineto events
+    (a step of 10^5-10^6 kernels would take minutes as FunctionEvents);
+    then ``n_timed`` calls between CUDA events (ms each, sorted), and the
+    card's idle share of the median one (1 - device ms / step ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    # (DEVICE "cpu", a rehearsal: the CPU's operators stand in for kernels)
+    activity, kind = ((ProfilerActivity.CUDA, "CUDA") if DEVICE == "cuda"
+                      else (ProfilerActivity.CPU, "CPU"))
+    torch.cuda.synchronize()
+    with profile(activities=[activity]) as prof:
+        step()
+        torch.cuda.synchronize()
+    kernels, ns = 0, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type().name == kind and not e.is_user_annotation():
+            kernels += 1
+            ns += e.duration_ns()
+    del prof
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n_timed + 1)]
+    events[0].record()
+    for i in range(n_timed):
+        step()
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    ms = sorted(events[i].elapsed_time(events[i + 1]) for i in range(n_timed))
+    median = ms[len(ms) // 2]
+    return {"step_ms": ms, "step_ms_median": median, "device_ms": ns / 1e6,
+            "kernels": kernels, "device_idle_share": 1.0 - ns / 1e6 / median}
+
+
+def vgg_classify_main(root) -> dict:
+    """classify_main on vgg-16.cfg as a user runs it; see the module
+    docstring."""
+    import glob
+
+    from yolodl_torch.bridge import params_from_jax, params_to_jax
+    from yolodl_torch.cli import classify_main
+    from yolodl_torch.config import darknet_cfg as dk
+    from yolodl_torch.data import cache as cache_mod
+    from yolodl_torch.graph.from_darknet import graph_from_darknet
+    from yolodl_torch.models import GraphModel, zoo
+    from yolodl_torch.train import TrainConfig, train_init
+    from yolodl_torch.train import classifier as classifier_mod
+    from yolodl_torch.train.checkpoint import load_recent_checkpoint_in_runs
+
+    size = dk.Darknet.load(VGG_CFG).net.height
+    probe = GraphModel(graph_from_darknet(dk.Darknet.load(VGG_CFG)), device=DEVICE)
+    saved = saved_bytes(probe, size)
+    del probe
+    torch.cuda.empty_cache()
+    batch, cut = CLASSIFY_BATCH, None
+    if saved * batch > DK_SAVED_BUDGET:
+        batch = int(DK_SAVED_BUDGET // saved)
+        cut = (f"batch {CLASSIFY_BATCH} -> {batch}: {saved * CLASSIFY_BATCH / 1e9:.1f} GB of "
+               f"saved activations > {DK_SAVED_BUDGET / 1e9:.0f} GB")
+    config = classify_workspace(root, batch)
+    line = {"model": "vgg-16", "image_size": size, "batch": batch, "batch_cut": cut,
+            "dtype": "float32", "saved_gb_per_image": saved / 1e9,
+            "saved_gb_per_batch": saved * batch / 1e9}
+
+    # train: decode and step timed from outside the CLI
+    decode_s, steps = [0.0], []
+    real_loader, real_make_step = cache_mod.make_decode_loader, classifier_mod.make_classifier_train_step
+
+    def timed_loader(hw):
+        loader = real_loader(hw)
+        load = loader.load
+
+        def timed_load(record):
+            t0 = time.perf_counter()
+            try:
+                return load(record)
+            finally:
+                decode_s[0] += time.perf_counter() - t0
+        loader.load = timed_load
+        return loader
+
+    def timed_make_step(*args, **kwargs):
+        step = real_make_step(*args, **kwargs)
+
+        def timed(ts, images, labels):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ts, metrics = step(ts, images, labels)
+            loss = float(metrics["loss"])
+            t1 = time.perf_counter()
+            steps.append({"start": t0, "end": t1, "loss": loss})
+            return ts, metrics
+        return timed
+
+    torch.cuda.reset_peak_memory_stats()
+    with swapped(cache_mod, make_decode_loader=timed_loader), \
+            swapped(classifier_mod, make_classifier_train_step=timed_make_step), \
+            swapped(torch.backends.cudnn, allow_tf32=True):
+        t0 = time.perf_counter()
+        train_lines = quiet(classify_main.main, ["--config-file", config, "--max-steps",
+                                                 str(CLASSIFY_STEPS), *CLI_DEVICE_ARGS])
+        line["train_s"] = time.perf_counter() - t0
+    line["train_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    losses = [s["loss"] for s in steps]
+    if len(losses) != CLASSIFY_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"classify_main losses {losses}")
+    ckpts = sorted(glob.glob(os.path.join(root, "logs", "*", "checkpoints", "*.ckpt")))
+    if not ckpts:
+        raise AssertionError("classify_main wrote no checkpoint")
+    with np.load(ckpts[-1]) as data:
+        if not any(k.startswith("opt/") for k in data.files):
+            raise AssertionError(f"{ckpts[-1]} holds no opt/")
+    step_ms = [(s["end"] - s["start"]) * 1e3 for s in steps]
+    line.update(stdout=train_lines, losses=losses, step_ms=step_ms,
+                steps_per_s=(len(steps) - 1) / (steps[-1]["end"] - steps[0]["end"]),
+                decode_ms_per_step=decode_s[0] * 1e3 / len(steps),
+                synchronized_step_ms_median=statistics.median(step_ms[1:]))
+
+    # eval: top-1 and top-5 from the checkpoint; the top-1 count equal to
+    # the model's argmax on the same decoded batches (same padding)
+    with swapped(torch.backends.cudnn, allow_tf32=True):
+        t0 = time.perf_counter()
+        eval_lines = quiet(classify_main.main, ["--config-file", config, "--eval", "--topk", "5",
+                                                *CLI_DEVICE_ARGS])
+        line["eval_s"] = time.perf_counter() - t0
+        counts = {}
+        for text in eval_lines:
+            if "accuracy" in text:
+                k = text.split()[0]
+                counts[k] = int(text.split("(")[1].split("/")[0])
+        if set(counts) != {"top-1", "top-5"} or counts["top-5"] < counts["top-1"]:
+            raise AssertionError(f"classify_main --eval: {eval_lines}")
+        model = zoo.load_darknet_classifier(VGG_CFG, device=DEVICE)
+        p, s, _, meta = load_recent_checkpoint_in_runs(os.path.join(root, "logs"),
+                                                       *params_to_jax(model.state_dict()))
+        params_from_jax(p, s, model=model)
+        records = classify_main._load_records(os.path.join(root, "images"),
+                                              os.path.join(root, "labels.csv"),
+                                              [f"colour{i}" for i in range(CLASSIFY_CLASSES)])
+        loader = cache_mod.make_decode_loader((size, size))
+        direct, first = 0, None
+        from yolodl_torch.data.records import FileRecord
+
+        for i in range(0, len(records), batch):
+            chunk = records[i:i + batch]
+            n_real = len(chunk)
+            chunk = chunk + [chunk[-1]] * (batch - n_real)
+            images = torch.from_numpy(np.stack([loader.load(FileRecord(
+                path=path, height=0, width=0, boxes_pixel=np.zeros((0, 4), np.float32),
+                classes=np.zeros((0,), np.int32))).image for path, _ in chunk])).to(DEVICE)
+            labels = torch.tensor([lbl for _, lbl in chunk], device=DEVICE)
+            with torch.inference_mode():
+                pred = model(images, train=False).reshape(batch, -1).argmax(-1)
+            direct += int((pred[:n_real] == labels[:n_real]).sum())
+            if first is None:
+                first = (images, labels)
+    if direct != counts["top-1"]:
+        raise AssertionError(f"eval top-1 {counts['top-1']} != model -> argmax {direct}")
+    line.update(eval_stdout=eval_lines, eval_counts=counts, direct_top1=direct,
+                checkpoint_step=meta["step"])
+
+    # one step at library level: events, then the profiler
+    config_t = TrainConfig()
+    ts, opt = train_init(model, config_t)
+    step = classifier_mod.make_classifier_train_step(model, opt, config_t)
+    with swapped(torch.backends.cudnn, allow_tf32=True):
+        step(ts, *first)  # warm-up, then a profiled one and 3 timed
+        line["library_step"] = step_profile(lambda: step(ts, *first), 3)
+    del model, opt, ts, first, step
+    torch.cuda.empty_cache()
+    return line
+
+
+def lstm_train_step() -> dict:
+    """lstm.train.cfg at full width through make_classifier_train_step:
+    LSTM_SEQUENCES sequences of its 576 time steps, time-major one-hot bytes
+    of the repo's README.md + SURVEY.md, each label the next byte; f32,
+    TrainConfig() (Adam); LSTM_WARMUP steps, the last one profiled, then
+    LSTM_TIMED timed (step_profile).  Every loss finite, every parameter
+    changed."""
+    from yolodl_torch.config import darknet_cfg as dk
+    from yolodl_torch.models import zoo
+    from yolodl_torch.train import TrainConfig, train_init
+    from yolodl_torch.train.classifier import make_classifier_train_step
+
+    darknet = dk.Darknet.load(LSTM_CFG)
+    t, b = darknet.net.time_steps, LSTM_SEQUENCES
+    text = b"".join(open(os.path.join(REPO, n), "rb").read() for n in ("README.md", "SURVEY.md"))
+    data = np.frombuffer(text, np.uint8)
+    span = (len(data) - 1) // b
+    if span < t:
+        raise AssertionError(f"{len(data)} bytes of text < {b} sequences of {t + 1}")
+    idx = np.arange(t)[:, None] + (np.arange(b) * span)[None, :]  # [t, b], row t*b + j
+    inputs = data[idx].reshape(-1)
+    labels = data[idx + 1].reshape(-1)
+    x = torch.zeros((t * b, 256, 1, 1))
+    x[torch.arange(t * b), torch.from_numpy(inputs.astype(np.int64))] = 1.0
+    x, y = x.to(DEVICE), torch.from_numpy(labels.astype(np.int64)).to(DEVICE)
+
+    model = zoo.load_darknet_classifier(LSTM_CFG, device=DEVICE)
+    config = TrainConfig()
+    ts, opt = train_init(model, config)
+    step = make_classifier_train_step(model, opt, config)
+    p0 = {k: v.detach().clone() for k, v in model.named_parameters()}
+    losses = []
+
+    def one():
+        _, m = step(ts, x, y)
+        losses.append(m["loss"])
+
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(LSTM_WARMUP - 1):
+        one()
+    prof = step_profile(one, LSTM_TIMED)  # its profiled step is the last warm-up
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"lstm.train losses {losses}")
+    changed = sum(int(not torch.equal(v, p0[k])) for k, v in model.named_parameters())
+    if changed != len(p0):
+        raise AssertionError(f"{len(p0) - changed} of {len(p0)} lstm.train parameters did "
+                             "not change")
+    line = {"model": "lstm.train", "time_steps": t, "sequences": b, "rows": t * b,
+            "parameters": sum(v.numel() for v in p0.values()), "dtype": "float32",
+            "losses": losses, "peak_memory_gb": peak, **prof,
+            "kernels_per_time_step": prof["kernels"] / t}
+    del model, opt, ts, x, y, p0
+    torch.cuda.empty_cache()
+    return line
+
+
+def occlusion_track_detect(root, iou) -> dict:
+    """detect_main on yolov3-tiny_occlusion_track.cfg at its own 416² from
+    a seed-0 .weights file (written by the port's saver, read back through
+    zoo.load_darknet_model bit-identical), batch 20 (its time_steps) over
+    OCCLUSION_FRAMES frames of one synthetic sequence (a square moving over
+    a smooth field), B1's counters zeroed right before and read right
+    after: each kernel once per batch."""
+    from PIL import Image
+
+    from yolodl_torch.bridge import params_to_jax
+    from yolodl_torch.cli import detect_main
+    from yolodl_torch.config import darknet_cfg as dk
+    from yolodl_torch.models import zoo
+    from yolodl_torch.models.weights import save_darknet_weights
+
+    darknet = dk.Darknet.load(OCCLUSION_CFG)
+    batch = darknet.net.time_steps
+    weights = os.path.join(root, "occlusion_track.weights")
+    seeded = zoo.load_darknet_model(OCCLUSION_CFG, seed=0, device=DEVICE)
+    save_darknet_weights(darknet, *params_to_jax(seeded.state_dict()), weights)
+    loaded = zoo.load_darknet_model(OCCLUSION_CFG, weights, device=DEVICE)
+    want = seeded.state_dict()
+    if not all(torch.equal(v, want[k]) for k, v in loaded.state_dict().items()):
+        raise AssertionError("occlusion_track .weights round trip changed the state_dict")
+    del seeded, loaded, want
+
+    frames = os.path.join(root, "frames")
+    os.makedirs(frames)
+    rng = np.random.default_rng(7)
+    h, w = 480, 640
+    low = rng.integers(0, 256, (h // 40 + 2, w // 40 + 2, 3), dtype=np.uint8)
+    field = np.asarray(Image.fromarray(low).resize((w, h), Image.BILINEAR), np.int16)
+    rows = ["image_file,class_name,cy,cx,h,w"]
+    for i in range(OCCLUSION_FRAMES):
+        cy, cx = 120 + 4 * i, 100 + 10 * i
+        pixels = field + rng.integers(-12, 13, (h, w, 3))
+        pixels[cy - 40:cy + 40, cx - 50:cx + 50] = (230, 40, 40)
+        Image.fromarray(np.clip(pixels, 0, 255).astype(np.uint8)).save(
+            os.path.join(frames, f"{i:03d}.jpg"), quality=90)
+        rows.append(f"{i:03d}.jpg,object,{cy}.00,{cx}.00,80.00,100.00")
+    with open(os.path.join(root, "frames.csv"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    with open(os.path.join(root, "frames_classes.txt"), "w") as f:
+        f.write("object\n")
+    out_dir = os.path.join(root, "out_occlusion")
+    config = write_json(os.path.join(root, "detect_occlusion.json5"), {
+        "version": "0.1.0",
+        "model": {"kind": "Darknet", "cfg_file": OCCLUSION_CFG, "minibatch_size": batch,
+                  "devices": ["cuda:0"]},
+        "input": {"kind": {"type": "Csv", "image_size": OCCLUSION_SIZE, "image_dir": frames,
+                           "label_file": os.path.join(root, "frames.csv"),
+                           "classes_file": os.path.join(root, "frames_classes.txt")}},
+        "preprocess": {"out_of_bound_tolerance": 1.0},
+        "output": {"output_dir": out_dir, "nms_iou_thresh": NMS_IOU,
+                   "nms_conf_thresh": CLI_CONF}})
+    kernels = (iou.nms_conflict_bits, iou.nms_keep_from_bits)
+    batches = -(-OCCLUSION_FRAMES // batch)
+    for fn in kernels:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    lines = quiet(detect_main.main, ["--config-file", config, "--weights", weights,
+                                     *CLI_DEVICE_ARGS])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    drawn = len(os.listdir(out_dir))
+    if set(launches.values()) != {batches} or drawn != OCCLUSION_FRAMES:
+        raise AssertionError(f"occlusion_track detect_main: launches {launches}, "
+                             f"{drawn} images, {batches} batches")
+    return {"model": "yolov3-tiny_occlusion_track", "image_size": OCCLUSION_SIZE,
+            "batch": batch, "frames": OCCLUSION_FRAMES, "img_per_s": OCCLUSION_FRAMES / seconds,
+            "seconds": seconds, "stdout": lines, "launches": launches,
+            "weights_mb": os.path.getsize(weights) / 1e6}
+
+
+def phase_classify(iou) -> dict:
+    """The dense and recurrent node kinds (ROADMAP A12) and classify_main
+    (A11d) on the card; see the module docstring.  Returns B1's launches
+    on occlusion_track's detect path."""
+    import shutil
+
+    root = CLASSIFY_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    line = {"phase": "classify"}
+    try:
+        line["card_vs_cpu"] = {name: dense_card_vs_cpu(name, count)
+                               for name, count in CLASSIFY_CARD_VS_CPU}
+        line["vgg16_classify_main"] = vgg_classify_main(root)
+        line["lstm_train_step"] = lstm_train_step()
+        line["occlusion_track_detect"] = occlusion_track_detect(root, iou)
+        line["card"] = card_line()
+        emit(line)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"occlusion_track_detect": line["occlusion_track_detect"]["launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2569,6 +3051,7 @@ def main() -> int:
     train_ms = phase_train()
     by_path.update(phase_darknet_loss(iou, train_ms))
     by_path.update(phase_deploy(iou))
+    by_path.update(phase_classify(iou))
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -660,10 +660,14 @@ def write_darknet_train_workspace(root, cfg_text=DARKNET_TRAIN_CFG, size=64, **t
 # -- the darknet corpus sweep (test_torch_corpus_*.py), port only
 
 CORPUS_DIR = os.path.join(REPO, "cfg", "darknet")
-# cfgs that reach a node kind of ROADMAP A12 (Linear, rnn, gru, lstm, crnn)
-CORPUS_A12 = ("alexnet.cfg", "crnn.train.cfg", "extraction.conv.cfg", "extraction22k.cfg",
-              "gru.cfg", "lstm.train.cfg", "rnn.cfg", "rnn.train.cfg", "strided.cfg",
-              "t1.test.cfg", "vgg-16.cfg", "yolov3-tiny_occlusion_track.cfg")
+# the cfgs with a dense or recurrent node kind (Linear, rnn, gru, lstm, crnn)
+CORPUS_DENSE = ("alexnet.cfg", "crnn.train.cfg", "extraction.conv.cfg", "extraction22k.cfg",
+                "gru.cfg", "lstm.train.cfg", "rnn.cfg", "rnn.train.cfg", "strided.cfg",
+                "t1.test.cfg", "vgg-16.cfg", "yolov3-tiny_occlusion_track.cfg")
+# ... of which these run 576 time steps (test_torch_corpus_3.py)
+CORPUS_LONG = ("crnn.train.cfg", "lstm.train.cfg", "rnn.train.cfg")
+# cfgs that stop at a node kind the port lacks (none since ROADMAP A12)
+CORPUS_A12 = ()
 CORPUS_UNPARSABLE = ("resnet152_trident.cfg",)  # its route sizes do not unify
 
 
@@ -672,19 +676,22 @@ def corpus_names():
 
 
 def corpus_slice(part, parts):
-    """Every ``parts``-th buildable corpus cfg, from ``part``."""
-    names = [n for n in corpus_names() if n not in CORPUS_A12 + CORPUS_UNPARSABLE]
+    """Every ``parts``-th buildable corpus cfg, from ``part``, but the
+    576-step ones of CORPUS_LONG."""
+    names = [n for n in corpus_names()
+             if n not in CORPUS_A12 + CORPUS_UNPARSABLE + CORPUS_LONG]
     return names[part::parts]
 
 
 def corpus_text(name):
     """The cfg with its input cut to 64² (128² for the p7 models, whose
-    stride is 128), as scripts/corpus_forward_sweep.py shrinks it."""
+    stride is 128, and for alexnet, whose last pool has nothing left to
+    pool below 99²), as scripts/corpus_forward_sweep.py shrinks it."""
     import re
 
     with open(os.path.join(CORPUS_DIR, name)) as f:
         text = f.read()
-    size = 128 if "p7" in name else 64
+    size = 128 if "p7" in name or name == "alexnet.cfg" else 64
     text = re.sub(r"(?m)^height *= *\d+", f"height={size}", text)
     return re.sub(r"(?m)^width *= *\d+", f"width={size}", text)
 
@@ -717,3 +724,86 @@ def corpus_forward(name):
         final.cycxhw, final.obj_logit, final.class_logit]
     assert all(bool(torch.isfinite(f).all()) for f in fields), name
     return final
+
+
+# -- the dense and recurrent layers (test_torch_recurrent*.py): reference
+# trees carried to the port's nested parameter dicts, and one comparison of
+# outputs, new BN state and gradients
+
+def port_tree(tree, grad=False):
+    """A reference params or state tree as the port's ops take it: ``w``
+    through the bridge's mapping (HWIO → OIHW, ``[in, out]`` → ``[out,
+    in]``), other leaves as they are; ``grad`` marks every leaf as a leaf
+    of autograd."""
+    from yolodl_torch.bridge import _kernel_to_torch
+
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = port_tree(v, grad)
+        else:
+            t = _kernel_to_torch(v) if k == "w" else torch.from_numpy(np.array(v, np.float32))
+            out[k] = t.requires_grad_(grad)
+    return out
+
+
+def recurrent_matches(j_fn, t_fn, params, state, x, train, nchw=False, tol=1e-5, seed=0):
+    """``j_fn(params, state, x, train)`` (the reference, NHWC maps) and
+    ``t_fn`` on the port's trees (NCHW maps when ``nchw``) give the same
+    output and new BN state within ``tol`` · max|ref| of each, and the same
+    gradients of a seeded weighted sum of the output (every parameter and
+    the input; ``jax.grad`` against autograd) within ``tol`` · the largest
+    reference gradient of the call: train-mode BN's backward sums in another
+    order in each package, and a small leaf's gradient, such as a bias
+    behind a BN, keeps the absolute error of the large ones.  Returns the
+    reference output."""
+    from yolodl_torch.bridge import _kernel_to_jax
+
+    out_shape = jax.eval_shape(lambda xx: j_fn(params, state, xx, train)[0], x).shape
+    r = np.random.default_rng(seed + 1).normal(size=out_shape).astype(np.float32)
+
+    def j_loss(p, xx):
+        out, new_state = j_fn(p, state, xx, train)
+        return jnp.sum(out * r), (out, new_state)
+
+    # one jit of forward and gradient (op by op, XLA compiles every scan again)
+    (_, (j_out, j_state)), (j_gp, j_gx) = jax.jit(jax.value_and_grad(
+        j_loss, argnums=(0, 1), has_aux=True))(
+        jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(x))
+
+    tp, ts = port_tree(params, grad=True), port_tree(state)
+    tx = torch.from_numpy(x.transpose(0, 3, 1, 2).copy() if nchw else x.copy())
+    tx.requires_grad_(True)
+    t_out, t_state = t_fn(tp, ts, tx, train)
+    out = t_out.permute(0, 2, 3, 1) if nchw else t_out
+    (out * torch.from_numpy(r)).sum().backward()
+
+    def close(got, want, what, scale):
+        assert got.shape == want.shape, (what, got.shape, want.shape)
+        np.testing.assert_allclose(got, want, rtol=0, atol=tol * max(scale, 1e-6), err_msg=what)
+
+    j_out = np.asarray(j_out)
+    close(out.detach().numpy(), j_out, "output", float(np.abs(j_out).max()))
+    j_flat, t_flat = flat_leaves(j_state), flat_leaves(
+        jax.tree_util.tree_map(lambda t: t.detach().numpy(), t_state))
+    assert set(j_flat) == set(t_flat)
+    for k, v in j_flat.items():
+        close(t_flat[k], v, f"state {k}", float(np.abs(v).max()))
+    t_params = {k: t for k, t in _named(tp)}
+    gx = tx.grad.permute(0, 2, 3, 1) if nchw else tx.grad
+    grads = [("input", gx.numpy(), np.asarray(j_gx))]
+    for k, g in flat_leaves(j_gp).items():
+        got = t_params[k].grad.numpy()
+        grads.append((k, _kernel_to_jax(got) if k.endswith("w") else got, g))
+    g_max = max(float(np.abs(g).max()) for _, _, g in grads)
+    for k, got, want in grads:
+        close(got, want, f"gradient {k}", g_max)
+    return j_out
+
+
+def _named(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v

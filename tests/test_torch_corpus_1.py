@@ -1,7 +1,8 @@
-"""Corpus sweep, part 2 of 3: every third buildable `cfg/darknet/*.cfg`
+"""Corpus sweep, part 2 of 4: every third buildable `cfg/darknet/*.cfg`
 (from the 2nd) builds in yolodl_torch and runs one finite eval
-forward at 64² (128² for the p7 models) whose node shapes equal the
-graph's (`_torch_parity.corpus_forward`)."""
+forward at 64² (128² for the p7 models and alexnet) whose node shapes
+equal the graph's (`_torch_parity.corpus_forward`); the three 576-step
+sequence cfgs are part 4's."""
 
 import pytest
 import torch

@@ -91,15 +91,29 @@ def test_no_device_raises_without_a_card(monkeypatch):
 
 
 def test_unported_node_kind_names_roadmap_item():
-    model = t_cfg.parse_model_dict({
+    """The NEWSLAB Linear kind, which raised naming ROADMAP A12 until the
+    dense kinds were ported: it builds and matches the reference, its
+    weight the reference's ``[in, out]`` transposed and its input the
+    NHWC flatten of the map."""
+    from yolodl_tpu.models.builder import GraphModel as JGraphModel
+
+    spec = {
         "main_group": "m",
         "groups": {"m": [
             {"name": "input", "kind": "Input", "shape": ["_", 3, 8, 8]},
             {"name": "output", "kind": "Linear", "out": 8},
         ]},
-    })
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        GraphModel(TGraph.from_model(model), device="cpu")
+    }
+    jm = JGraphModel(JGraph.from_model(j_cfg.parse_model_dict(spec)), spd_stem="off")
+    params, state = jm.init(jax.random.PRNGKey(2))
+    tm = GraphModel(TGraph.from_model(t_cfg.parse_model_dict(spec)), device="cpu")
+    params_from_jax(params, state, model=tm)
+    assert tuple(tm.layers["output"].w.shape) == (8, 3 * 8 * 8)
+    x = np.random.default_rng(3).uniform(0, 1, (2, 3, 8, 8)).astype(np.float32)
+    ref, _ = jm.apply(params, state, x, train=False)
+    with torch.no_grad():
+        out = tm(torch.from_numpy(x))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -123,7 +137,8 @@ def test_port_imports_neither_jax_nor_reference():
         "    'cli.serve_main', 'ops.blocks', 'utils.timing', 'data.mosaic',\n"
         "    'data.pipeline', 'data.tfrecord_cache', 'cli.train_main',\n"
         "    'loss.darknet_loss', 'models.fold', 'models.export', 'parallel.pipeline',\n"
-        "    'cli.tool_main')}\n"
+        "    'cli.tool_main', 'ops.recurrent', 'train.classifier', 'cli.classify_main',\n"
+        "    'utils.tensor_ext', 'units')}\n"
         "missing = sorted(need - set(sys.modules))\n"
         "print(n, bad, missing)\n"
         "sys.exit(1 if bad or missing or n < 50 else 0)\n"

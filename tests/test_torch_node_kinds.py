@@ -188,6 +188,15 @@ def test_flat_instance_maps_match_reference():
 
 
 def test_recurrent_and_dense_kinds_still_name_a12():
-    text = net(8) + conv(4) + "[connected]\noutput=10\nactivation=linear\n"
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        GraphModel(t_graph(t_dk.Darknet.from_str(text)), device="cpu")
+    """The dense and recurrent kinds raised naming ROADMAP A12 until they
+    were ported; now a [connected] after a conv (with and without BN) and a
+    [crnn] after a [connected] build and match the reference node by node
+    (tests/test_torch_linear.py and test_torch_recurrent*.py hold the rest)."""
+    text = (net(8) + conv(4) + "[connected]\noutput=10\nbatch_normalize=1\n"
+            "activation=leaky\n" + "[crnn]\nbatch_normalize=1\nsize=1\npad=0\noutput=6\n"
+            "hidden=5\nactivation=leaky\n" + "[connected]\noutput=3\nactivation=linear\n")
+    jm, params, state, tm = build_pair(text, 3)
+    assert {"Linear", "DarknetCrnn"} <= {n.config.kind for n in tm.graph.nodes.values()}
+    x = np.random.default_rng(4).uniform(0, 1, (2, 3, 8, 8)).astype(np.float32)
+    outs = assert_nodes_match(jm, params, state, tm, x)
+    assert tuple(outs[tm.graph.order[-1]].shape) == (2, 3)

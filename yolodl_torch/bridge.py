@@ -10,8 +10,13 @@ as leaves.  A DarkCsp2D or SppCsp2D block nests one such entry per sub-conv
 and ``layers.<path>.<sub>.w`` … inside a block.  Every kernel, a
 DeconvBn2D's included, crosses as ``permute(3, 2, 0, 1)`` of the HWIO
 array: the port keeps a deconv kernel ``[out, in, k, k]`` and hands
-``F.conv_transpose2d`` its ``transpose(0, 1)`` (ops/conv.py).  Only numpy
-crosses the boundary, so this module needs nothing of JAX.
+``F.conv_transpose2d`` its ``transpose(0, 1)`` (ops/conv.py).  A dense
+weight (Linear, and the connected sub-layers ``input``/``self``/``output``,
+``iz``…``sh`` and ``wf``…``uo`` of the recurrent kinds) is the reference's
+2-D ``[in, out]`` and the port's ``[out, in]``, as ``nn.Linear`` keeps it:
+it crosses transposed.  A [crnn] node nests three sub-convs, and a dense
+BN has a ``scale`` and no ``bias``.  Only numpy crosses the boundary, so
+this module needs nothing of JAX.
 """
 
 from __future__ import annotations
@@ -32,11 +37,13 @@ def _path_of(key: str) -> str:
 
 
 def _kernel_to_torch(w) -> torch.Tensor:
-    return torch.from_numpy(np.array(w, np.float32)).permute(3, 2, 0, 1).contiguous()
+    """HWIO → OIHW; a dense ``[in, out]`` → ``[out, in]``."""
+    t = torch.from_numpy(np.array(w, np.float32))
+    return (t.t() if t.dim() == 2 else t.permute(3, 2, 0, 1)).contiguous()
 
 
 def _kernel_to_jax(w: np.ndarray) -> np.ndarray:
-    return np.ascontiguousarray(w.transpose(2, 3, 1, 0))
+    return np.ascontiguousarray(w.T if w.ndim == 2 else w.transpose(2, 3, 1, 0))
 
 
 def _leaves(tree: Dict, prefix: str):
@@ -51,7 +58,8 @@ def _leaves(tree: Dict, prefix: str):
 def params_from_jax(params: Dict, state: Dict, model: Optional[torch.nn.Module] = None
                     ) -> Dict[str, torch.Tensor]:
     """Reference (params, state) trees → the port's ``state_dict`` (f32,
-    CPU).  HWIO kernels become OIHW by ``permute(3, 2, 0, 1)``.
+    CPU).  HWIO kernels become OIHW by ``permute(3, 2, 0, 1)``, dense
+    weights ``[out, in]`` by a transpose.
 
     With ``model``, the values are also copied into the model's own
     parameters and BN buffers in place (on whatever device they live), and
@@ -87,7 +95,7 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Tuple[Dict, Dict]:
         parts = key[len("layers."):].split(".")
         path, leaf = _path_of(parts[0]), parts[1:]
         value = t.detach().to("cpu", torch.float32).numpy()
-        # a leaf is w, b or bn/<name>, behind at most one sub-conv name
+        # a leaf is w, b or bn/<name>, behind at most one sub-layer name
         sub, tail = (leaf[:1], leaf[1:]) if leaf[0] not in ("w", "b", "bn") else ([], leaf)
         if tail == ["w"]:
             tree, value = params, _kernel_to_jax(value)

@@ -15,13 +15,13 @@ normalizes with batch statistics, and the new running statistics, which the
 reference returns as ``new_state``, are written into the BN buffers in
 place.  The mode is that keyword, never ``nn.Module.training``.
 
-Every node kind but the recurrent and dense ones is ported: Input,
-ConvBn2D, Conv2D, DeconvBn2D, DarkCsp2D, SppCsp2D, DarknetRoute,
-DarknetShortcut, DarknetSam, DarknetScaleChannels, Reorg2D (plain, reverse
-and old), MaxPool (max and avg), GlobalAvgPool2D, UpSample2D, Sum2D,
-Concat2D, DynamicPad2D, Identity, Dropout, Softmax, Detect2D,
-MergeDetect2D and Yolov1Detection.  Building a graph with Linear or a
-recurrent kind raises ``NotImplementedError`` naming ROADMAP A12.  The
+Every node kind of the reference is ported: Input, ConvBn2D, Conv2D,
+DeconvBn2D, DarkCsp2D, SppCsp2D, DarknetRoute, DarknetShortcut,
+DarknetSam, DarknetScaleChannels, Reorg2D (plain, reverse and old),
+MaxPool (max and avg), GlobalAvgPool2D, UpSample2D, Sum2D, Concat2D,
+DynamicPad2D, Identity, Dropout, Softmax, Detect2D, MergeDetect2D,
+Yolov1Detection, and the dense and recurrent kinds of ``ops/recurrent.py``:
+Linear, DarknetRnn, DarknetGru, DarknetLstm and DarknetCrnn.  The
 reference's layout rewrites (``spd_stem``, ``fold_region``) are not
 ported: the port computes as the reference does with ``spd_stem="off"``.
 
@@ -30,7 +30,10 @@ same element order: Softmax and GlobalAvgPool2D reduce dim 1 and dims 2-3,
 a scale_channels scale is ``[b, c, 1, 1]`` (SE) or ``[b, 1, h, w]``
 (scale_wh), Yolov1Detection flattens CHW without a transpose, and Reorg2D
 is ``ops/simple.py`` ``space_to_depth``/``depth_to_space`` (REORG_OLD
-reinterprets the NCHW buffer, which the port already holds).  Dropout
+reinterprets the NCHW buffer, which the port already holds), and Linear
+and the dense recurrent kinds flatten a map as NHWC
+(``recurrent.flatten_nhwc``), so a dense weight is the reference's,
+transposed to ``[out, in]``.  Dropout
 draws its mask from the ``generator`` given to ``forward`` (the reference's
 ``rng``), node by node in graph order; without one it is the identity.
 
@@ -57,28 +60,16 @@ from .._device import resolve_device
 from ..config import newslab as cfg
 from ..graph import Graph
 from ..graph.ir import MERGE_DETECT_2D
-from ..ops import blocks, conv, detect, norm, simple
+from ..ops import blocks, conv, detect, norm, recurrent, simple
 
 Tensor = torch.Tensor
 
-# node kinds this slice does not run yet → the ROADMAP item that ports them
-_NOT_PORTED = {
-    cfg.Linear: "A12 (other workloads)",
-    cfg.DarknetRnn: "A12 (other workloads)",
-    cfg.DarknetGru: "A12 (other workloads)",
-    cfg.DarknetLstm: "A12 (other workloads)",
-    cfg.DarknetCrnn: "A12 (other workloads)",
-}
-
-_PORTED = (cfg.Input, cfg.ConvBn2D, cfg.Conv2D, cfg.DeconvBn2D, cfg.DarkCsp2D,
-           cfg.SppCsp2D, cfg.DarknetRoute, cfg.DarknetShortcut, cfg.DarknetSam,
-           cfg.DarknetScaleChannels, cfg.Reorg2D, cfg.MaxPool, cfg.GlobalAvgPool2D,
-           cfg.UpSample2D, cfg.Sum2D, cfg.Concat2D, cfg.DynamicPad2D, cfg.Identity,
-           cfg.Dropout, cfg.Softmax, cfg.Detect2D, cfg.MergeDetect2D,
-           cfg.Yolov1Detection)
-
 # node kinds with parameters whose apply returns (output, new BN state)
 _BN_KINDS = (cfg.ConvBn2D, cfg.DeconvBn2D, cfg.DarkCsp2D, cfg.SppCsp2D)
+# the dense and recurrent kinds (ops/recurrent.py): parameters, and BN
+# statistics when the layer normalizes
+_DENSE_KINDS = (cfg.Linear, cfg.DarknetRnn, cfg.DarknetGru, cfg.DarknetLstm,
+                cfg.DarknetCrnn)
 
 
 def _detach(out):
@@ -124,13 +115,16 @@ def module_key(path: str) -> str:
 
 class DarkBatchNorm(nn.Module):
     """BN parameters (``scale``, ``bias`` when affine) and running stats
-    (``mean``, ``var`` buffers) of one conv; the math is ``ops/norm.py``."""
+    (``mean``, ``var`` buffers) of one conv; the math is ``ops/norm.py``.
+    ``shift=False`` leaves the bias out: a darknet connected layer's BN has
+    a scale only, and its layer bias is added after it."""
 
-    def __init__(self, channels: int, affine: bool, device):
+    def __init__(self, channels: int, affine: bool, device, shift: bool = True):
         super().__init__()
         if affine:
             self.scale = nn.Parameter(torch.ones(channels, device=device))
-            self.bias = nn.Parameter(torch.zeros(channels, device=device))
+            if shift:
+                self.bias = nn.Parameter(torch.zeros(channels, device=device))
         self.register_buffer("mean", torch.zeros(channels, device=device))
         self.register_buffer("var", torch.ones(channels, device=device))
 
@@ -143,7 +137,22 @@ class DarkBatchNorm(nn.Module):
         return {"mean": self.mean, "var": self.var}
 
 
-class ConvNode(nn.Module):
+class _NormedNode(nn.Module):
+    """A layer whose ``bn`` attribute is a DarkBatchNorm or None."""
+
+    def state(self) -> Dict:
+        return {"bn": self.bn.state()} if self.bn is not None else {}
+
+    @torch.no_grad()
+    def write_state(self, new_state: Dict) -> None:
+        """Copy the new running statistics of a training forward into the
+        BN buffers."""
+        if self.bn is not None:
+            self.bn.mean.copy_(new_state["bn"]["mean"])
+            self.bn.var.copy_(new_state["bn"]["var"])
+
+
+class ConvNode(_NormedNode):
     """Weights of a ConvBn2D or Conv2D node: ``w`` OIHW, ``b`` when the
     layer has a bias, ``bn`` when it is batch-normalized."""
 
@@ -182,32 +191,49 @@ class ConvNode(nn.Module):
             p["bn"] = self.bn.params()
         return p
 
-    def state(self) -> Dict:
-        return {"bn": self.bn.state()} if self.bn is not None else {}
-
-    @torch.no_grad()
-    def write_state(self, new_state: Dict) -> None:
-        """Copy the new running statistics of a training forward into the
-        BN buffers."""
-        if self.bn is not None:
-            self.bn.mean.copy_(new_state["bn"]["mean"])
-            self.bn.var.copy_(new_state["bn"]["var"])
-
     @torch.no_grad()
     def clamp_running_var(self, var_min: Optional[float], var_max: Optional[float]) -> None:
         if self.bn is not None:
             self.bn.var.copy_(norm.clamp_running_var(self.bn.state(), var_min, var_max)["var"])
 
 
-class BlockNode(nn.ModuleDict):
-    """The sub-convs of a DarkCsp2D or SppCsp2D node, keyed by the
-    reference's sub-layer names; ``params()``/``state()`` give the nested
-    trees the block functions of ``ops/blocks.py`` take."""
+class DenseNode(_NormedNode):
+    """Weights of a darknet connected (sub-)layer: ``w`` ``[out, in]`` as
+    ``nn.Linear`` keeps it, ``b``, and ``bn`` with a scale only when the
+    layer is batch-normalized (``ops/recurrent.py`` ``dense_apply``)."""
 
-    def __init__(self, convs, bn: cfg.BatchNormConfig, device):
-        bias = cfg.ConvBn2D(bn=bn).bias  # a sub-conv is a default ConvBn2D
-        super().__init__({name: ConvNode(ci, co, k, 1, bias, bn, device)
-                          for name, ci, co, k in convs})
+    def __init__(self, in_f: int, out_f: int, bn: bool, device):
+        super().__init__()
+        self.w = nn.Parameter(torch.empty(out_f, in_f, device=device))
+        self.b = nn.Parameter(torch.empty(out_f, device=device))
+        self.bn = DarkBatchNorm(out_f, True, device, shift=False) if bn else None
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Uniform in ±1/√in for the weight and the bias, as
+        ``ops/initializers.py`` ``linear_weight``/``conv_bias`` draw them;
+        BN scale 1, mean 0, var 1.  Drawn on the CPU, as a conv's."""
+        out_f, in_f = self.w.shape
+        bound = 1.0 / math.sqrt(in_f) if in_f > 0 else 0.0
+        self.w.copy_(torch.empty(self.w.shape).uniform_(-bound, bound, generator=generator))
+        self.b.copy_(torch.empty(out_f).uniform_(-bound, bound, generator=generator))
+        if self.bn is not None:
+            self.bn.scale.fill_(1.0)
+            self.bn.mean.zero_()
+            self.bn.var.fill_(1.0)
+
+    def params(self) -> Dict:
+        p: Dict = {"w": self.w, "b": self.b}
+        if self.bn is not None:
+            p["bn"] = self.bn.params()
+        return p
+
+
+class SubLayers(nn.ModuleDict):
+    """The named sub-layers of one node (the sub-convs of a DarkCsp2D or
+    SppCsp2D block, the connected sub-layers of [rnn]/[gru]/[lstm], the
+    sub-convs of [crnn]); ``params()``/``state()`` give the nested trees
+    that the node's apply function takes."""
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for m in self.values():
@@ -226,6 +252,52 @@ class BlockNode(nn.ModuleDict):
     def clamp_running_var(self, var_min: Optional[float], var_max: Optional[float]) -> None:
         for m in self.values():
             m.clamp_running_var(var_min, var_max)
+
+
+def _block_node(convs, bn: cfg.BatchNormConfig, device) -> SubLayers:
+    """The sub-convs of a DarkCsp2D or SppCsp2D node, keyed by the
+    reference's sub-layer names (``ops/blocks.py``)."""
+    bias = cfg.ConvBn2D(bn=bn).bias  # a sub-conv is a default ConvBn2D
+    return SubLayers({name: ConvNode(ci, co, k, 1, bias, bn, device)
+                      for name, ci, co, k in convs})
+
+
+def crnn_sub_cfgs(layer: cfg.DarknetCrnn) -> Dict[str, cfg.ConvBn2D]:
+    """The three conv sub-layer geometries of a [crnn] node
+    (crnn_layer.c:54-64: input c→hidden, self hidden→hidden, output
+    hidden→out, all sharing size/pad/act/BN, darknet order); the
+    reference's ``GraphModel._crnn_sub_cfgs``."""
+    def sub(out_c: int) -> cfg.ConvBn2D:
+        return cfg.ConvBn2D(
+            c=out_c, k=layer.k, s=1, p=layer.p, d=layer.d, g=layer.g,
+            bias=not layer.bn, act=layer.act,
+            bn=cfg.BatchNormConfig(enabled=layer.bn), order="bn_act")
+    return {"input": sub(layer.hidden), "self": sub(layer.hidden),
+            "output": sub(layer.out)}
+
+
+def _dense_node(layer, src_shape, device) -> nn.Module:
+    """The module of a Linear or recurrent node whose input has the logical
+    NCHW shape ``src_shape`` (``[N, C]`` or ``[N, C, H, W]``)."""
+    dims = [d.size for d in src_shape[1:]]
+    in_f = math.prod(dims)
+    if isinstance(layer, cfg.Linear):
+        return DenseNode(in_f, layer.out, layer.bn.enabled, device)
+    if isinstance(layer, cfg.DarknetCrnn):
+        in_c = {"input": dims[0], "self": layer.hidden, "output": layer.hidden}
+        return SubLayers({
+            name: ConvNode(in_c[name], c.c, c.k, c.g, c.bias, c.bn, device)
+            for name, c in crnn_sub_cfgs(layer).items()})
+    if isinstance(layer, cfg.DarknetRnn):
+        subs = (("input", in_f, layer.hidden), ("self", layer.hidden, layer.hidden),
+                ("output", layer.hidden, layer.out))
+    elif isinstance(layer, cfg.DarknetGru):
+        subs = tuple((name, in_f if name.startswith("i") else layer.out, layer.out)
+                     for name in recurrent.GRU_SUBS)
+    else:  # DarknetLstm: w* read the hidden state, u* the input (lstm_layer.c:44-86)
+        subs = tuple((name, layer.out if name.startswith("w") else in_f, layer.out)
+                     for name in recurrent.LSTM_SUBS)
+    return SubLayers({name: DenseNode(i, o, layer.bn, device) for name, i, o in subs})
 
 
 class GraphModel(nn.Module):
@@ -260,19 +332,16 @@ class GraphModel(nn.Module):
         for key in graph.order:
             node = graph.nodes[key]
             layer = node.config
-            if not isinstance(layer, _PORTED):
-                item = _NOT_PORTED.get(type(layer), "A12 (other workloads)")
-                raise NotImplementedError(
-                    f"{layer.kind} is not ported to yolodl_torch yet "
-                    f"(ROADMAP {item})")
-            if not isinstance(layer, (cfg.Conv2D,) + _BN_KINDS):
+            if not isinstance(layer, (cfg.Conv2D,) + _BN_KINDS + _DENSE_KINDS):
                 continue
-            src = graph.nodes[node.input_keys.single_key].output_shape
-            in_c = self._in_c[key] = src.tensor_shape()[1].size
-            if isinstance(layer, cfg.DarkCsp2D):
-                m = BlockNode(blocks.dark_csp_convs(layer, in_c), layer.bn, device)
+            src = graph.nodes[node.input_keys.single_key].output_shape.tensor_shape()
+            in_c = self._in_c[key] = src[1].size
+            if isinstance(layer, _DENSE_KINDS):
+                m = _dense_node(layer, src, device)
+            elif isinstance(layer, cfg.DarkCsp2D):
+                m = _block_node(blocks.dark_csp_convs(layer, in_c), layer.bn, device)
             elif isinstance(layer, cfg.SppCsp2D):
-                m = BlockNode(blocks.spp_csp_convs(layer, in_c), layer.bn, device)
+                m = _block_node(blocks.spp_csp_convs(layer, in_c), layer.bn, device)
             else:
                 # a DeconvBn2D kernel is kept [out, in, k, k] like a conv's
                 # (ops/conv.py); the reference rejects a grouped deconv
@@ -321,18 +390,46 @@ class GraphModel(nn.Module):
             m.write_state(new_state)
         return out
 
+    def _apply_dense_node(self, key: int, layer, x: Tensor, train: bool) -> Tensor:
+        """A Linear or recurrent node (``ops/recurrent.py``); in training,
+        the running statistics after its last time step are written into
+        the buffers."""
+        m = self._node(key)
+        params, state = m.params(), m.state()
+        if isinstance(layer, cfg.Linear):
+            out, new_state = recurrent.dense_apply(
+                params, state, recurrent.flatten_nhwc(x), layer.act, train)
+        elif isinstance(layer, cfg.DarknetRnn):
+            out, new_state = recurrent.rnn_apply(
+                params, state, x, hidden=layer.hidden, act=layer.act,
+                self_act=layer.self_act, shortcut=layer.shortcut,
+                time_steps=layer.time_steps, train=train)
+        elif isinstance(layer, cfg.DarknetGru):
+            out, new_state = recurrent.gru_apply(
+                params, state, x, out_f=layer.out, time_steps=layer.time_steps, train=train)
+        elif isinstance(layer, cfg.DarknetLstm):
+            out, new_state = recurrent.lstm_apply(
+                params, state, x, out_f=layer.out, time_steps=layer.time_steps, train=train)
+        else:
+            out, new_state = recurrent.crnn_apply(
+                params, state, x, sub_cfgs=crnn_sub_cfgs(layer), hidden=layer.hidden,
+                shortcut=layer.shortcut, time_steps=layer.time_steps, train=train)
+        if train:
+            m.write_state(new_state)
+        return out
+
     def _nodes_for(self, output_keys: Tuple[int, ...], train: bool) -> frozenset:
         """The nodes a forward for ``output_keys`` runs: their ancestors, and
-        in training also every BN node's (whose running statistics the
-        reference's ``new_state`` updates whether or not its output is
-        requested)."""
+        in training also every node with BN statistics and its ancestors
+        (the reference's ``new_state`` updates them whether or not its
+        output is requested)."""
         cache_key = (output_keys, train)
         nodes = self._node_sets.get(cache_key)
         if nodes is None:
             roots = list(output_keys)
             if train:
                 roots += [k for k in self.graph.order
-                          if isinstance(self.graph.nodes[k].config, _BN_KINDS)]
+                          if isinstance(self.graph.nodes[k].config, _BN_KINDS + _DENSE_KINDS)]
             seen = set()
             while roots:
                 key = roots.pop()
@@ -459,6 +556,8 @@ class GraphModel(nn.Module):
                 outputs[key] = scale * target
             elif isinstance(layer, cfg.Reorg2D):
                 outputs[key] = _reorg(outputs[ik.single_key], layer)
+            elif isinstance(layer, _DENSE_KINDS):
+                outputs[key] = self._apply_dense_node(key, layer, outputs[ik.single_key], train)
             elif isinstance(layer, cfg.GlobalAvgPool2D):
                 # darknet avgpool keeps a 1x1 map
                 outputs[key] = torch.mean(outputs[ik.single_key], dim=(2, 3), keepdim=True)
@@ -478,7 +577,7 @@ class GraphModel(nn.Module):
                 outputs[key] = torch.softmax(h, dim=1 if h.dim() == 4 else -1)
             elif isinstance(layer, cfg.Yolov1Detection):
                 outputs[key] = _yolov1_detection(outputs[ik.single_key], layer)
-            else:  # pragma: no cover - __init__ rejects every other kind
+            else:  # pragma: no cover - every kind of the IR is handled above
                 raise NotImplementedError(layer.kind)
 
             if key in self._sg_keys:
@@ -491,7 +590,12 @@ class GraphModel(nn.Module):
     def clamp_running_vars(self) -> None:
         """Clamp every BN running variance to its node's var_min/var_max, in
         place (model.rs:412-422 → dark_batch_norm.rs:148-172); a block's
-        sub-convs take the block's.  Called after each optimizer step."""
+        sub-convs take the block's.  Called after each optimizer step.
+
+        The dense and recurrent kinds are not clamped, as in the reference:
+        a recurrent layer's ``bn`` is a plain bool with no clamp knobs, and
+        the reference's clamp looks for a Linear's statistics one level
+        deeper than it keeps them (builder.py:752-787)."""
         for key in self.graph.order:
             layer = self.graph.nodes[key].config
             if not isinstance(layer, _BN_KINDS):
