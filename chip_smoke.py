@@ -88,7 +88,38 @@ result line:
    ms per step by span (data wait, the batch's H2D copy on the card, the
    synchronized step, the rest of the loop), evaluation ms, peak memory
    and detect img/s, with the card's name and power limit.
-6. wgrad  — conv2d_lowch and conv2d_db (yolodl_torch.kernels), forward and
+6. augment — the device augmentation (data/device_augment.py, ROADMAP
+   A13).  First the program at the flagship's width: 64 seeded records at
+   608² (smooth colour fields with noise on the u8/255 grid, 1-7 boxes),
+   scripts/bench_device_augment.py's recipe (mosaic 0.5 with margin 0.25,
+   jitter, the affine with rotation up to 10°, translation, scale 0.8-1.2,
+   flip), one u8 pack of batch 16 with k_max 4 (rotation-free for the
+   separable warp).  Each warp (separable, two-pass with the recipe's
+   bands, general) runs jitter + warp + mosaic on the card and on the CPU:
+   mean |Δ| ≤ 1e-5 and at most 0.2 % of pixels with |Δ| > 1e-3 (a border
+   or hue-sextant flip is one ulp away); the mix-only program must be
+   identical.  Per route: ms by CUDA events (median of 20), the
+   synchronized wall ms, device ms, kernels and host syncs (profiler), and
+   the peak memory above the pack; the pack's H2D copy, u8 against f32.
+   Then the host side it frees: the same recipe through the port's host
+   pipeline (every pixel on the host) and through the deferred host prep
+   (draws, labels, the u8 pack), one worker each, records/s.  Last,
+   train_main on cfg/train.json5 as phase train_main changes it, plus
+   preprocessor.pipeline.device "cuda", logging.enable_images false (true
+   keeps the CPU pipeline, as in the reference) and ordered records: 5
+   steps in this process with B1's counters zeroed right before and read
+   right after (1 launch of each kernel for the step-1 inference + 3 for
+   the evaluation at step 3); every loss finite, no fallback warning, the
+   CPU pipeline never entered, the two-pass warp chosen.  Its first
+   batch's images against the CPU program on the same pack (the bounds
+   above) and its boxes, classes and mask equal (torch.equal) to the CPU
+   pipeline's run with the same seed; the images against that run within
+   the two-pass pipeline bound of tests/test_device_augment.py.  The line
+   gives steps/s, records/s, the data-wait share, ms per step by span
+   (data wait, the u8 pack's H2D copy, the synchronized step, the rest),
+   the program's ms, device ms and kernels a batch, peak memory, beside
+   phase train_main's numbers, and the card's name and power limit.
+7. wgrad  — conv2d_lowch and conv2d_db (yolodl_torch.kernels), forward and
    backward at each stride-1 low-channel conv shape of yolov4-csp at 608²,
    batch 8, bf16, with both launch counters zeroed right before and read
    right after: each kernel must have launched once per backward.  dW is
@@ -105,7 +136,7 @@ result line:
    flagship lacks (odd widths, 3, 40 and 130 input channels, 20, 24 and 72
    output channels, k 1, 3 and 5), bf16 and f32, against the plain version
    within the same 1e-4, again with identical bits from two launches.
-7. train  — first one f32 SGD step of yolov4-csp at 64², batch 2, on the
+8. train  — first one f32 SGD step of yolov4-csp at 64², batch 2, on the
    card and on the CPU from the same weights and batch: losses within
    rel 1e-4, every updated parameter within 25 % of its tensor's largest
    update plus 4 f32 ulps of its largest entry (see train_card_vs_cpu).
@@ -117,7 +148,7 @@ result line:
    wgrad launch.  Prints step ms (CUDA events), img/s, peak memory, a
    profile of one step (device ms, kernels, the costliest, the card's idle
    share) and of its parts (forward, loss, backward, optimizer).
-8. darknet_loss — the darknet-exact loss (yolodl_torch/loss/darknet_loss.py),
+9. darknet_loss — the darknet-exact loss (yolodl_torch/loss/darknet_loss.py),
    TF32 off for its f32 comparisons.  First the card against the CPU:
    yolov4-csp's three head params at 608² and Gaussian_yolov3_BDD's at
    512², seeded f32 NCHW raws (batch 2) and 64 truth rows an image (40
@@ -147,7 +178,7 @@ result line:
    steps/s, ms per step by span (data wait, the synchronized step, the
    loss inside it, the rest), the loss's share of the step, peak memory,
    and the card's name and power limit.
-9. deploy — yolov4-csp at 608² deployed as a user would (ROADMAP A11c),
+10. deploy — yolov4-csp at 608² deployed as a user would (ROADMAP A11c),
    and ROADMAP A4's node kinds on the card.  The seed-0 model with seeded
    BN statistics goes to a .weights file; tool_main fold-weights (in this
    process) writes the BN-free pair, whose cfg must hold no
@@ -174,7 +205,7 @@ result line:
    ms and kernels (profiler), and the load seconds, and each exported
    program's aten calls; the workspace,
    build/chip_smoke_deploy/, is removed at the end.
-10. classify — the dense and recurrent node kinds and classify_main
+11. classify — the dense and recurrent node kinds and classify_main
    (ROADMAP A11d + A12).  First the f32 eval forwards of vgg-16 (256²,
    fc1 32768 -> 4096, 2 images), alexnet (227²), rnn and gru (one time
    step), lstm.train and crnn.train (one sequence of 576 one-hot bytes)
@@ -198,7 +229,8 @@ result line:
    16 sequences (its batch 128 / subdivisions 8) × 576 time steps of the
    repo's README.md + SURVEY.md as one-hot bytes, each label the next
    byte, Adam: 2 warm-up steps, the second profiled (device activity
-   only, counted on the raw kineto events), 3 timed (CUDA events); every loss
+   only, counted on the raw kineto events), 1 timed (CUDA events; 13-22 s
+   a step, so one keeps the smoke inside its time limit); every loss
    finite, every parameter changed; step ms, kernels, device ms, idle
    share, peak memory.  Last, detect_main on
    yolov3-tiny_occlusion_track.cfg at 416², batch 20 (its time_steps),
@@ -206,7 +238,7 @@ result line:
    through zoo.load_darknet_model bit-identical, over 40 frames of one
    synthetic sequence: B1's counters zeroed right before and read right
    after, one launch of each kernel per batch; img/s.
-11. card  — `nvidia-smi --query-gpu=name,power.limit` as it prints it.
+12. card  — `nvidia-smi --query-gpu=name,power.limit` as it prints it.
 
 The line before the last lists the kernels; the last line is
 {"ok": true, "device": {...}}.  TF32 is switched off for every f32
@@ -271,6 +303,16 @@ TRAIN_MAIN_EVAL_INTERVAL = 3  # evaluations at steps 3 and 6
 TRAIN_MAIN_EVAL_BATCH = 8     # 3 batches per evaluation
 TRAIN_MAIN_TIMEOUT = 600      # seconds for the interrupted subprocess
 TRAIN_MAIN_ACCUMULATION = 4   # micro-batches of 24: batch 96 at 256² fits 80 GB no other way
+AUGMENT_ROOT = os.path.join(REPO, "build", "chip_smoke_augment")  # removed at the end
+AUGMENT_SIZE = 608            # the flagship's width (scripts/bench_device_augment.py's)
+AUGMENT_BATCH = 16            # bench.py:20, and the bench script's
+AUGMENT_RECORDS = 64          # the bench script's synthetic set
+AUGMENT_ROTATE = 10.0         # the bench script's recipe: rotation up to 10°, scale 0.8-1.2
+AUGMENT_TIMED = 20            # program calls timed by CUDA events, after 10 warm-up calls
+AUGMENT_HOST_BATCHES = 2      # host batches timed per route, after one warm-up batch
+AUGMENT_STEPS = 5             # train_main steps: an evaluation at step 3
+AUGMENT_MEAN_TOL = 1e-5       # card vs CPU program: mean |Δ| ...
+AUGMENT_FLIP_TOL = 0.002      # ... and the share of pixels with |Δ| > 1e-3 (border, hue sextant)
 BF16_BOX_TOL = 0.05      # bf16 vs f32 forward at 608²: max|Δ| / max|f32| of cycxhw
 BF16_LOGIT_TOL = 0.1     # ... and of the objectness and class logits
 DK_ROOT = os.path.join(REPO, "build", "chip_smoke_darknet")  # removed at the end
@@ -313,7 +355,7 @@ CLASSIFY_BATCH = 128
 CLASSIFY_SIZES = [(300, 400), (256, 256), (480, 360), (200, 320)]  # original h x w
 CLASSIFY_STEPS = 6
 LSTM_SEQUENCES = 16           # lstm.train.cfg's batch 128 / subdivisions 8
-LSTM_WARMUP, LSTM_TIMED = 2, 3
+LSTM_WARMUP, LSTM_TIMED = 2, 1   # one timed step (13-22 s): the smoke's time limit
 OCCLUSION_FRAMES = 40         # two batches of the cfg's time_steps 20
 OCCLUSION_SIZE = 416
 
@@ -1600,10 +1642,58 @@ def crc32c_ms(size) -> float:
     return statistics.median(times)
 
 
+def train_main_config(root, kinds) -> dict:
+    """cfg/train.json5 read by the port's JSON5 reader, with what phase
+    train_main changes: the dataset (``kinds``: train_main_workspace's),
+    logging.dir, cache_dir, load_checkpoint, an evaluation block, and the
+    memory (remat, accumulation_steps); the model path only becomes
+    absolute."""
+    from yolodl_torch.config import json5_reader
+
+    with open(TRAIN_MAIN_CONFIG) as f:
+        raw = json5_reader.load(f)
+    raw["model"]["cfg_file"] = os.path.join(REPO, raw["model"]["cfg_file"])
+    raw["dataset"]["kind"] = kinds["train"]
+    raw["logging"]["dir"] = os.path.join(root, "logs")
+    raw["preprocessor"]["cache"]["cache_dir"] = os.path.join(root, "cache")
+    raw["training"]["load_checkpoint"] = {"type": "Disabled"}
+    # at 256², batch 96, f32 the model's saved activations outgrow the
+    # card's 80 GB (its head is at full resolution, 65,536 flats an
+    # image; the line's saved_activations_gb_per_batch).  remat "blocks"
+    # changes no value (tests/test_torch_newslab_ops.py) and cuts them,
+    # but a block's recompute at batch 96 still outgrew the card; so the
+    # batch of 96 also runs as 4 accumulated micro-batches of 24
+    # (darknet's subdivisions; BN normalizes over each micro-batch)
+    raw["training"]["remat"] = True
+    raw["training"]["accumulation_steps"] = TRAIN_MAIN_ACCUMULATION
+    raw["evaluation"] = {"interval": TRAIN_MAIN_EVAL_INTERVAL,
+                         "batch_size": TRAIN_MAIN_EVAL_BATCH,
+                         "dataset": {"kind": kinds["eval"]}}
+    return raw
+
+
+def run_train_main(*argv) -> None:
+    """train_main.main in this process, with PyTorch's TF32 defaults, as in
+    a user's process (cuDNN convs in TF32); its SIGINT/SIGTERM handlers and
+    the smoke's TF32 settings are put back afterwards."""
+    import signal
+
+    from yolodl_torch.cli import train_main
+
+    saved = {s: signal.getsignal(s) for s in (signal.SIGINT, signal.SIGTERM)}
+    with swapped(torch.backends.cudnn, allow_tf32=True):
+        try:
+            train_main.main([*argv, *CLI_DEVICE_ARGS])
+        finally:
+            for s, handler in saved.items():
+                signal.signal(s, handler)
+
+
 def phase_train_main(iou):
     """yolodl_torch.cli.train_main on cfg/train.json5's model and recipe at
     batch 96, interrupted and resumed, then detect_main on cfg/detect.json5's
-    model; see the module docstring.  Returns B1's launches per path."""
+    model; see the module docstring.  Returns B1's launches per path and
+    the line's step numbers (for phase augment)."""
     import contextlib
     import glob
     import shutil
@@ -1611,7 +1701,7 @@ def phase_train_main(iou):
 
     from yolodl_torch import train as train_pkg
     from yolodl_torch.bridge import params_to_jax
-    from yolodl_torch.cli import detect_main, train_main
+    from yolodl_torch.cli import detect_main
     from yolodl_torch.config import json5_reader
     from yolodl_torch.data import pipeline as pipeline_mod
     from yolodl_torch.models import zoo
@@ -1623,46 +1713,15 @@ def phase_train_main(iou):
     os.makedirs(root)
     kernels = (iou.nms_conflict_bits, iou.nms_keep_from_bits)
 
-    def run_train_main(*argv):
-        """train_main.main in this process, with PyTorch's TF32 defaults, as
-        in a user's process (cuDNN convs in TF32); its SIGINT/SIGTERM
-        handlers and the smoke's TF32 settings are put back afterwards."""
-        saved = {s: signal.getsignal(s) for s in (signal.SIGINT, signal.SIGTERM)}
-        with swapped(torch.backends.cudnn, allow_tf32=True):
-            try:
-                train_main.main([*argv, *CLI_DEVICE_ARGS])
-            finally:
-                for s, handler in saved.items():
-                    signal.signal(s, handler)
-
     try:
         with open(TRAIN_MAIN_CONFIG) as f:
-            raw = json5_reader.load(f)
-        model_path = os.path.join(REPO, raw["model"]["cfg_file"])
-        parity = newslab_card_vs_cpu(model_path)
-        size = int(raw["dataset"]["kind"]["image_size"])  # the Iii set's, as in the file
-        saved = saved_activation_bytes(model_path, size)
+            size = int(json5_reader.load(f)["dataset"]["kind"]["image_size"])  # the Iii set's
         kinds = train_main_workspace(root, size)
+        raw = train_main_config(root, kinds)
+        model_path = raw["model"]["cfg_file"]
+        parity = newslab_card_vs_cpu(model_path)
+        saved = saved_activation_bytes(model_path, size)
         batch = int(raw["training"]["batch_size"])
-        # what changes: the dataset, logging.dir, cache_dir, load_checkpoint
-        # and an evaluation block; the model path only becomes absolute
-        raw["model"]["cfg_file"] = model_path
-        raw["dataset"]["kind"] = kinds["train"]
-        raw["logging"]["dir"] = os.path.join(root, "logs")
-        raw["preprocessor"]["cache"]["cache_dir"] = os.path.join(root, "cache")
-        raw["training"]["load_checkpoint"] = {"type": "Disabled"}
-        # at 256², batch 96, f32 the model's saved activations outgrow the
-        # card's 80 GB (its head is at full resolution, 65,536 flats an
-        # image; the line's saved_activations_gb_per_batch).  remat "blocks"
-        # changes no value (tests/test_torch_newslab_ops.py) and cuts them,
-        # but a block's recompute at batch 96 still outgrew the card; so the
-        # batch of 96 also runs as 4 accumulated micro-batches of 24
-        # (darknet's subdivisions; BN normalizes over each micro-batch)
-        raw["training"]["remat"] = True
-        raw["training"]["accumulation_steps"] = TRAIN_MAIN_ACCUMULATION
-        raw["evaluation"] = {"interval": TRAIN_MAIN_EVAL_INTERVAL,
-                             "batch_size": TRAIN_MAIN_EVAL_BATCH,
-                             "dataset": {"kind": kinds["eval"]}}
         config = write_json(os.path.join(root, "train.json5"), raw)
 
         # the timed run, in this process: B1's counters zeroed right before
@@ -1865,6 +1924,11 @@ def phase_train_main(iou):
         if set(detect_launches.values()) != {det_batches} or drawn != TRAIN_MAIN_EVAL_IMAGES:
             raise AssertionError(f"detect_main: {drawn} images, launches {detect_launches}")
 
+        summary = {"steady_ms_per_step": steady_ms, "steps_per_s": 1e3 / steady_ms,
+                   "data_wait_share": sum(wait_ms[steady]) / (steady_ms * n_steady),
+                   "data_wait_ms": wait_ms, "step_ms": step_ms,
+                   "logging_and_rest_mean_ms": loop_ms,
+                   "profiled_step_device_ms": profiled.get("profiled_step_device_ms")}
         emit({"phase": "train_main", "config": "cfg/train.json5",
               "model": raw["model"]["cfg_file"].replace(REPO + os.sep, ""),
               "image_size": size, "batch": batch, "steps": TRAIN_MAIN_STEPS,
@@ -1893,7 +1957,342 @@ def phase_train_main(iou):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
-    return {"train_main": launches, "detect_main_newslab": detect_launches}
+    return {"train_main": launches, "detect_main_newslab": detect_launches}, summary
+
+
+# ---------------------------------------------------------------------------
+# phase augment: the device augmentation (data/device_augment.py)
+
+
+class AugmentLoader:
+    """Index → a seeded record at size²: a smooth colour field with noise on
+    the u8/255 grid, as a decoded JPEG gives, and 1-7 boxes of 3 classes
+    (scripts/bench_device_augment.py's boxes).  The images are made once;
+    each load returns fresh copies."""
+
+    def __init__(self, size, records):
+        from yolodl_torch.data.records import DataRecord
+
+        self.record = DataRecord
+        self.items = []
+        for i in range(records):
+            rng = np.random.default_rng(3000 + i)
+            low = rng.uniform(0, 255, (1, 3, size // 32 + 2, size // 32 + 2)).astype(np.float32)
+            field = torch.nn.functional.interpolate(torch.from_numpy(low), size=(size, size),
+                                                    mode="bilinear")[0].numpy()
+            pixels = np.clip(np.rint(field + rng.integers(-12, 13, field.shape)), 0, 255)
+            n = int(rng.integers(1, 8))
+            cy, cx = rng.uniform(0.2, 0.8, (2, n))
+            bh, bw = rng.uniform(0.05, 0.3, (2, n))
+            self.items.append(((pixels / 255.0).astype(np.float32),
+                               np.stack([cy, cx, bh, bw], -1).astype(np.float32),
+                               rng.integers(0, 3, n).astype(np.int32)))
+
+    def load(self, index):
+        image, boxes, classes = self.items[int(index)]
+        return self.record(image.copy(), boxes.copy(), classes.copy())
+
+
+def augment_recipe(defer, rotate=True):
+    """scripts/bench_device_augment.py's recipe at AUGMENT_BATCH: mosaic 0.5
+    (margin 0.25), colour jitter (0.1, 0.2, 0.2), the random affine
+    (rotation 0.5 up to 10°, or none; translation 0.5 by 0.1; scale 0.5 in
+    0.8-1.2; flip 0.5); one worker, seed 0, u8 packs."""
+    from yolodl_torch.data.affine import RandomAffine
+    from yolodl_torch.data.color import ColorJitter
+    from yolodl_torch.data.mosaic import MosaicMixer
+    from yolodl_torch.data.pipeline import TrainingStreamConfig
+
+    return TrainingStreamConfig(
+        batch_size=AUGMENT_BATCH, max_gt=64, seed=0, workers=1, defer_images=defer,
+        mosaic_prob=0.5, mosaic=MosaicMixer(mosaic_margin=0.25),
+        color_jitter=ColorJitter(hue_shift=0.1, saturation_shift=0.2, value_shift=0.2),
+        random_affine=RandomAffine(
+            rotate_prob=0.5 if rotate else 0.0, rotate_degrees=AUGMENT_ROTATE if rotate else None,
+            translation_prob=0.5, translation=0.1, scale_prob=0.5, scale=(0.8, 1.2),
+            horizontal_flip_prob=0.5))
+
+
+def first_batch(loader, config):
+    from yolodl_torch.data.pipeline import TrainingStream
+
+    stream = iter(TrainingStream(list(range(AUGMENT_RECORDS)), loader, config))
+    try:
+        return next(stream)
+    finally:
+        stream.close()
+
+
+def card_vs_cpu_images(card, cpu) -> dict:
+    diff = (card.cpu() - cpu).abs()
+    return {"max_abs_err": float(diff.max()), "mean_abs_err": float(diff.mean()),
+            "share_above_1e-3": float((diff > 1e-3).double().mean())}
+
+
+def augment_program(loader) -> dict:
+    """The augment program at 608², b16, k_max 4 on one u8 pack a route (a
+    rotating one, a rotation-free one for the separable warp): the card
+    against the CPU for each warp (mean |Δ| ≤ 1e-5, ≤ 0.2 % of pixels above
+    1e-3) and for the mix-only program (identical); then per route ms by
+    CUDA events (median of 20), the synchronized wall ms, device ms,
+    kernels and host syncs (profiler), peak memory over the pack; and the
+    pack's H2D copy from pinned memory, u8 against f32."""
+    from yolodl_torch.data import device_augment as da
+
+    size = AUGMENT_SIZE
+    packs = {rotate: first_batch(loader, augment_recipe(True, rotate)).deferred
+             for rotate in (True, False)}
+    flags = dict(has_jitter=True, has_affine=True, has_mosaic=True, has_mixup=False,
+                 has_cutmix=False)
+    routes = {"separable": (False, dict(separable=True)),
+              "twopass": (True, dict(separable=False,
+                                     bands=da.twopass_bands(AUGMENT_ROTATE, 0.8))),
+              "general": (True, dict(separable=False)),
+              "mix_only": (True, dict(separable=False, has_jitter=False, has_affine=False,
+                                      has_mixup=True, has_cutmix=True))}
+    out = {"bands": da.twopass_bands(AUGMENT_ROTATE, 0.8),
+           "mix_kinds": np.bincount(packs[True]["kind"], minlength=4).tolist()}
+    for name, (rotate, kw) in routes.items():
+        pack = packs[rotate]
+        fn = da.make_augment_fn(size, size, **{**flags, **kw})
+        cpu = fn({k: torch.from_numpy(v) for k, v in pack.items()})
+        dev_pack = {k: torch.from_numpy(v).to(DEVICE) for k, v in pack.items()}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        card = fn(dev_pack)
+        torch.cuda.synchronize()
+        line = {**card_vs_cpu_images(card, cpu),
+                "peak_memory_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
+        if name == "mix_only":
+            if not torch.equal(card.cpu(), cpu):
+                raise AssertionError(f"augment mix-only program: card != cpu: {line}")
+        elif not (line["mean_abs_err"] <= AUGMENT_MEAN_TOL
+                  and line["share_above_1e-3"] <= AUGMENT_FLIP_TOL):
+            raise AssertionError(f"augment {name} program: card vs cpu {line}")
+        del card, cpu
+        wall = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn(dev_pack)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        line.update({"ms": median_ms(lambda: fn(dev_pack), AUGMENT_TIMED),
+                     "wall_ms": statistics.median(wall), **profile_calls(lambda: fn(dev_pack))})
+        out[name] = line
+        del dev_pack
+    pack = packs[True]
+    f32 = {**pack, "images": pack["images"].astype(np.float32)}
+    for name, arrays in (("u8", pack), ("f32", f32)):
+        pinned = [torch.from_numpy(a).pin_memory() for a in arrays.values()]
+        out[f"h2d_{name}_pack"] = {
+            "mb": sum(a.nbytes for a in arrays.values()) / 1e6,
+            "ms": median_ms(lambda: [t.to(DEVICE, non_blocking=True) for t in pinned], 10)}
+    torch.cuda.empty_cache()
+    return out
+
+
+def augment_host_rates(loader) -> dict:
+    """The same recipe on the host, one worker: the port's host pipeline
+    (every pixel augmented there) against the deferred host prep (draws,
+    labels and the u8 pack), records/s."""
+    from yolodl_torch.data.pipeline import TrainingStream
+
+    rates = {}
+    for route, defer in (("host_pipeline", False), ("deferred_prep", True)):
+        stream = iter(TrainingStream(list(range(AUGMENT_RECORDS)), loader, augment_recipe(defer)))
+        try:
+            next(stream)
+            t0 = time.perf_counter()
+            for _ in range(AUGMENT_HOST_BATCHES):
+                next(stream)
+            rates[route] = AUGMENT_HOST_BATCHES * AUGMENT_BATCH / (time.perf_counter() - t0)
+        finally:
+            stream.close()
+    return {"records_per_s": rates, "deferred_over_host": rates["deferred_prep"] /
+            rates["host_pipeline"], "workers": 1}
+
+
+def augment_train_main(iou) -> dict:
+    """train_main on cfg/train.json5 as phase train_main changes it, plus
+    pipeline.device "cuda", logging.enable_images false (which would keep
+    the CPU pipeline) and ordered records; AUGMENT_STEPS steps in this
+    process with B1's counters zeroed right before and read right after.
+    Its first batch against the CPU program on the same pack and against
+    the CPU pipeline's run (same seed, one step)."""
+    import contextlib
+
+    from yolodl_torch import train as train_pkg
+    from yolodl_torch.config import json5_reader
+    from yolodl_torch.data import device_augment as da
+    from yolodl_torch.data import pipeline as pipeline_mod
+
+    root = AUGMENT_ROOT
+    kernels = (iou.nms_conflict_bits, iou.nms_keep_from_bits)
+    with open(TRAIN_MAIN_CONFIG) as f:
+        size = int(json5_reader.load(f)["dataset"]["kind"]["image_size"])
+    kinds = train_main_workspace(root, size)
+    raw = train_main_config(root, kinds)
+    raw["preprocessor"]["pipeline"].update({"device": "cuda", "unordered_records": False})
+    raw["logging"]["enable_images"] = False
+    batch = int(raw["training"]["batch_size"])
+    config = write_json(os.path.join(root, "augment.json5"), raw)
+
+    spans = {"data_wait": [], "step": []}
+    records, first, captured, losses = [], [], {}, []
+    real_apply, real_fn_for = da.apply_device_augmentation, da.augment_fn_for
+    real_make_fn, real_make_step = da.make_augment_fn, train_pkg.make_train_step
+
+    def timed_apply(iterator, stream_cfg, device="cuda", depth=2):
+        it = real_apply(iterator, stream_cfg, device, depth)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            spans["data_wait"].append(time.perf_counter() - t0)
+            records.append(item[0])
+            yield item
+
+    def recording_make_fn(h, w, **kw):
+        captured["warp"] = ("separable" if kw["separable"] else
+                            "twopass" if kw["bands"] else "general", kw["bands"])
+        return real_make_fn(h, w, **kw)
+
+    def capturing_fn_for(stream_cfg, h, w):
+        fn = real_fn_for(stream_cfg, h, w)
+
+        def run(pack):  # on the augmentation's side stream
+            if "pack" not in captured:
+                captured.update(fn=fn, pack={k: v.clone() for k, v in pack.items()})
+            return fn(pack)
+        return run
+
+    def timed_make_step(*args, **kwargs):
+        step = real_make_step(*args, **kwargs)
+
+        def run(ts, *batch_args):
+            if not first:
+                first.append(tuple(a.clone() for a in batch_args))
+            t0 = time.perf_counter()
+            ts, metrics = step(ts, *batch_args)
+            torch.cuda.synchronize()
+            spans["step"].append(time.perf_counter() - t0)
+            losses.append(float(metrics["total_loss"]))
+            return ts, metrics
+        return run
+
+    def no_cpu_pipeline(*args, **kwargs):
+        raise AssertionError("train_main took the CPU pipeline (device_prefetch)")
+
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(swapped(da, apply_device_augmentation=timed_apply,
+                                    augment_fn_for=capturing_fn_for,
+                                    make_augment_fn=recording_make_fn))
+        stack.enter_context(swapped(pipeline_mod, device_prefetch=no_cpu_pipeline))
+        stack.enter_context(swapped(train_pkg, make_train_step=timed_make_step))
+        stack.enter_context(contextlib.redirect_stdout(out))
+        stack.enter_context(contextlib.redirect_stderr(err))
+        t0 = time.perf_counter()
+        run_train_main("--config-file", config, "--max-steps", str(AUGMENT_STEPS))
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    per_eval = -(-TRAIN_MAIN_EVAL_IMAGES // TRAIN_MAIN_EVAL_BATCH)
+    expected = 1 + AUGMENT_STEPS // TRAIN_MAIN_EVAL_INTERVAL * per_eval
+    if set(launches.values()) != {expected}:
+        raise AssertionError(f"augment train_main: B1 launches {launches}, expected {expected}")
+    if len(losses) != AUGMENT_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"augment train_main losses {losses}")
+    if ("CPU pipeline" in err.getvalue() or len(records) < AUGMENT_STEPS
+            or captured["warp"][0] != "twopass"):
+        raise AssertionError(f"augment train_main: {len(records)} batches, warp "
+                             f"{captured['warp']}; {err.getvalue()[-2000:]}")
+
+    # the program on the card's first pack, on the CPU
+    cpu_images = captured["fn"]({k: v.cpu() for k, v in captured["pack"].items()})
+    vs_cpu_program = card_vs_cpu_images(first[0][0], cpu_images)
+    if not (vs_cpu_program["mean_abs_err"] <= AUGMENT_MEAN_TOL
+            and vs_cpu_program["share_above_1e-3"] <= AUGMENT_FLIP_TOL):
+        raise AssertionError(f"augment train_main: first batch vs cpu program {vs_cpu_program}")
+    program = {"ms": median_ms(lambda: captured["fn"](captured["pack"]), 10),
+               **profile_calls(lambda: captured["fn"](captured["pack"]))}
+
+    # the CPU pipeline's run with the same seed: its first batch
+    raw["preprocessor"]["pipeline"]["device"] = "cpu"
+    raw["logging"]["dir"] = os.path.join(root, "logs_cpu_pipeline")
+    cpu_first = []
+
+    def recording(*args, **kwargs):
+        step = real_make_step(*args, **kwargs)
+
+        def run(ts, *batch_args):
+            cpu_first.append(tuple(a.cpu() for a in batch_args))
+            return step(ts, *batch_args)
+        return run
+
+    with swapped(train_pkg, make_train_step=recording), \
+            contextlib.redirect_stdout(io.StringIO()):
+        run_train_main("--config-file", write_json(os.path.join(root, "cpu.json5"), raw),
+                       "--max-steps", "1")
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(first[0][1:], cpu_first[0][1:])):
+        raise AssertionError("augment train_main: the first batch's labels differ from "
+                             "the CPU pipeline's")
+    vs_cpu_pipeline = card_vs_cpu_images(first[0][0], cpu_first[0][0])
+    # the two-pass warp's interpolation is not scipy's bilinear
+    # (tests/test_device_augment.py test_rotation_twopass_pipeline's bound)
+    diff = (first[0][0].cpu() - cpu_first[0][0]).abs()
+    if not (float(diff.mean()) < 0.02 and float((diff > 0.25).double().mean()) < 0.02):
+        raise AssertionError(f"augment train_main: vs the CPU pipeline {vs_cpu_pipeline}")
+
+    h2d = [a.elapsed_time(b) for a, b in (r.upload_events for r in records
+                                          if r.upload_events is not None)]
+    steady = slice(1, AUGMENT_STEPS)
+    wait_ms = [v * 1e3 for v in spans["data_wait"][:AUGMENT_STEPS]]
+    step_ms = [v * 1e3 for v in spans["step"]]
+    steady_ms = (sum(wait_ms[steady]) + sum(step_ms[steady])) / (AUGMENT_STEPS - 1)
+    return {"config": "cfg/train.json5", "image_size": size, "batch": batch,
+            "steps": AUGMENT_STEPS, "warp": captured["warp"],
+            "steady_ms_per_step": steady_ms, "steps_per_s": 1e3 / steady_ms,
+            "records_per_s": batch * 1e3 / steady_ms,
+            "data_wait_share": sum(wait_ms[steady]) / (steady_ms * (AUGMENT_STEPS - 1)),
+            "step_ms_by_span": {"data_wait": wait_ms, "h2d_device_u8_pack": h2d[:AUGMENT_STEPS],
+                                "step": step_ms,
+                                "logging_and_rest_mean": (total_s * 1e3 - sum(wait_ms)
+                                                          - sum(step_ms)) / AUGMENT_STEPS},
+            "program_per_batch": program, "losses": losses, "peak_memory_gb": peak_gb,
+            "first_batch_vs_cpu_program": vs_cpu_program,
+            "first_batch_vs_cpu_pipeline": vs_cpu_pipeline, "labels_equal": True,
+            **{f"{k}_launches": v for k, v in launches.items()}}, launches
+
+
+def phase_augment(iou, train_main_summary) -> dict:
+    """The device augmentation (ROADMAP A13) on the card; see the module
+    docstring.  Returns B1's launches on its train_main path."""
+    import shutil
+
+    shutil.rmtree(AUGMENT_ROOT, ignore_errors=True)
+    os.makedirs(AUGMENT_ROOT)
+    try:
+        loader = AugmentLoader(AUGMENT_SIZE, AUGMENT_RECORDS)
+        line = {"phase": "augment", "image_size": AUGMENT_SIZE, "batch": AUGMENT_BATCH,
+                "k_max": 4, "program": augment_program(loader),
+                "host": augment_host_rates(loader)}
+        del loader
+        line["train_main"], launches = augment_train_main(iou)
+        line["train_main_cpu_pipeline"] = train_main_summary
+        line["card"] = card_line()
+        emit(line)
+    finally:
+        shutil.rmtree(AUGMENT_ROOT, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"augment_train_main": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -3046,7 +3445,10 @@ def main() -> int:
     # B1's launches on each path that runs it
     by_path = {"serve": {n: launches[n] for n in ("nms_conflict_bits", "nms_keep_from_bits")},
                "serve_dense_route": {"pairwise_iou": launches["pairwise_iou"]},
-               **phase_cli(iou), **phase_train_main(iou)}
+               **phase_cli(iou)}
+    train_main_launches, train_main_summary = phase_train_main(iou)
+    by_path.update(train_main_launches)
+    by_path.update(phase_augment(iou, train_main_summary))
     wgrad_launches, wgrad = phase_wgrad()
     train_ms = phase_train()
     by_path.update(phase_darknet_loss(iou, train_ms))

@@ -168,8 +168,6 @@ def test_pad_targets_matches_reference():
 def test_stream_rejections():
     with pytest.raises(ValueError, match="sum to <= 1"):
         stream_config(T, mosaic_prob=0.9)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        t_pipe.TrainingStreamConfig(defer_images=True)
     with pytest.raises(ValueError, match="empty dataset"):
         t_pipe.TrainingStream([], SyntheticLoader(t_records), stream_config(T))
 

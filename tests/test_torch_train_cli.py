@@ -12,9 +12,11 @@ Tolerances: the logged ``loss/total_loss`` of each of the three steps
 within rel 1e-4 (f32 forward and backward in another order; the Adam
 moments restored from the checkpoint keep the updates from amplifying
 rounding as a first step would); the two runs' last checkpoints hold the
-same entries with the same dtypes and shapes.  Also here: the multi-scale
-resize against ``jax.image.resize``, a run with ``loss.impl Darknet``,
-and the branches that raise naming their ROADMAP item.
+same entries with the same dtypes and shapes.  The same comparison with
+``preprocessor.pipeline.device`` on (the device augmentation, ROADMAP A13)
+and the reference's two fallbacks to the CPU pipeline.  Also here: the
+multi-scale resize against ``jax.image.resize``, a run with ``loss.impl
+Darknet``, and the branches that raise naming their ROADMAP item.
 """
 
 import glob
@@ -107,11 +109,78 @@ def test_darknet_loss_trains_and_logs_telemetry(tmp_path, capsys):
         assert len(values) == 2 and np.all(np.isfinite(values)), tag
 
 
-def test_device_augmentation_names_a13(tmp_path):
-    config = write_workspace(tmp_path)
+def device_augmentation_workspace(root, device, **training):
+    """The workspace with a rotating affine beside its mosaic and jitter,
+    and ``preprocessor.pipeline.device`` set."""
+    config = write_workspace(root, **training)
     raw = json.loads(open(config).read())
-    raw["preprocessor"]["pipeline"] = {"device": "tpu"}
+    raw["preprocessor"]["pipeline"] = {"device": device}
+    raw["preprocessor"]["random_affine"] = {
+        "affine_prob": 0.8, "rotate_prob": 0.5, "rotate_degrees": 10.0,
+        "translation_prob": 0.5, "translation": 0.1, "scale_prob": 0.5,
+        "scale": [0.9, 1.1], "horizontal_flip_prob": 0.5}
     with open(config, "w") as f:
         json.dump(raw, f)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        run(t_train, config, "--max-steps", "1", "--device", "cpu")
+    return config
+
+
+def test_device_augmentation_names_a13(tmp_path, monkeypatch, capsys):
+    """ROADMAP A13, device augmentation: the reference CLI with
+    ``pipeline.device "tpu"`` and the port's with ``"cuda"`` (on the CPU:
+    ``--device cpu``) train through their device augmentation from one
+    checkpoint, on a rotating affine (the two-pass warp) with mosaic and
+    jitter; their three logged losses agree within rel 1e-4, and neither
+    falls back to the CPU pipeline."""
+    from yolodl_torch.data import device_augment
+
+    monkeypatch.setenv("YDL_NO_NATIVE_DECODE", "1")  # both decode with PIL
+    first = write_workspace(tmp_path / "first")
+    run(j_train, first, "--max-steps", "1")
+    (ckpt,) = glob.glob(str(tmp_path / "first" / "logs" / "*" / "checkpoints" / "*.ckpt"))
+    capsys.readouterr()
+    calls = []
+    real = device_augment.apply_device_augmentation
+
+    def counting(*args, **kwargs):
+        calls.append(args[2] if len(args) > 2 else kwargs.get("device"))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(device_augment, "apply_device_augmentation", counting)
+    results = {}
+    for name, module, device, extra in (("ref", j_train, "tpu", ()),
+                                        ("port", t_train, "cuda", ("--device", "cpu"))):
+        config = device_augmentation_workspace(tmp_path / name, device, load_checkpoint={
+            "type": "FromFile", "file": ckpt})
+        run(module, config, "--max-steps", "4", *extra)
+        said = capsys.readouterr()
+        assert "restored checkpoint at step 1" in said.out
+        assert "warning" not in said.err, said.err
+        results[name] = logged(str(tmp_path / name / "logs"))[0]
+    assert [str(d) for d in calls] == ["cpu"]
+    assert [s for s, _ in results["port"]] == [s for s, _ in results["ref"]] == [2, 3, 4]
+    np.testing.assert_allclose([v for _, v in results["port"]],
+                               [v for _, v in results["ref"]], rtol=1e-4)
+
+
+@pytest.mark.parametrize("change,warning", [
+    ({"training": {"steps_per_call": 2}}, "requires single-process, non-scanned training"),
+    ({"logging": {"enable_images": True}}, "logging.enable_images needs host-side pipeline"),
+])
+def test_device_augmentation_falls_back_with_the_reference_warning(
+        tmp_path, monkeypatch, capsys, change, warning):
+    """As the reference's tests/test_cli.py: a multi-step call and the
+    pipeline's debug images keep the CPU pipeline, with a warning, and
+    train."""
+    from yolodl_torch.data import device_augment
+
+    config = device_augmentation_workspace(tmp_path, "cuda")
+    raw = json.loads(open(config).read())
+    for section, entries in change.items():
+        raw[section].update(entries)
+    with open(config, "w") as f:
+        json.dump(raw, f)
+    monkeypatch.setattr(device_augment, "apply_device_augmentation", None)  # never reached
+    run(t_train, config, "--max-steps", "2", "--device", "cpu")
+    assert warning in capsys.readouterr().err
+    values = [v for _, v in logged(str(tmp_path / "logs"))[0]]
+    assert len(values) == 2 and np.all(np.isfinite(values))

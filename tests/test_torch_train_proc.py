@@ -99,7 +99,8 @@ def test_sigint_checkpoint_and_from_recent_resume(tmp_path, monkeypatch, capsys)
 def test_unported_part_fails_with_one_error_line(tmp_path):
     config = write_workspace(tmp_path)
     raw = json.loads(open(config).read())
-    raw["preprocessor"]["pipeline"] = {"device": "tpu"}  # device augmentation
+    raw["training"]["device_config"] = {"type": "MultiDevice",  # several devices
+                                        "devices": ["cuda:0", "cuda:1"]}
     with open(config, "w") as f:
         json.dump(raw, f)
     res = subprocess.run(
@@ -108,7 +109,7 @@ def test_unported_part_fails_with_one_error_line(tmp_path):
         timeout=120)
     assert res.returncode == 1
     errors = [x for x in res.stderr.splitlines() if x.startswith("error:")]
-    assert len(errors) == 1 and "ROADMAP A13" in errors[0], res.stderr
+    assert len(errors) == 1 and "ROADMAP A14" in errors[0], res.stderr
 
 
 def test_darknet_loss_run_exits_zero(tmp_path):

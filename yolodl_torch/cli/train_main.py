@@ -21,9 +21,15 @@ per-head params from its [yolo]/[Gaussian_yolo] sections; under
 multi-scale each training size gets its own step, whose params bind
 ``net_w = net_h`` = that size.
 
+``preprocessor.pipeline.device "cuda"`` (or the reference's "tpu") runs
+the pixel augmentation on the device (``data/device_augment.py``): the
+pipeline threads draw the parameters and compute the labels, and the
+jitter, warp and mix run batched on the training device.  As in the
+reference, a multi-step call (``steps_per_call``) or
+``logging.enable_images`` keeps the CPU pipeline, with a warning.
+
 Not ported, each raising ``NotImplementedError`` naming its ROADMAP item:
-``preprocessor.pipeline.device "tpu"`` (A13), and several devices,
-MultiProcess, tensor/pipeline parallelism and ZeRO (A14).
+several devices, MultiProcess, tensor/pipeline parallelism and ZeRO (A14).
 """
 
 from __future__ import annotations
@@ -262,9 +268,13 @@ def main(argv=None):
     else:
         loader = make_decode_loader((size, size))
     records = dataset.records()
+    # preprocessor.pipeline.device "cuda" ("tpu" in the config's own words):
+    # defer the pixel augmentation to the batched device program
+    # (data/device_augment.py).  A multi-step call stacks HOST arrays, and
+    # the debug images need the host's per-stage pixels, so both keep the
+    # CPU pipeline, with the reference's warnings.
+    defer_images = False
     if pre.pipeline_device == "tpu":
-        # the reference keeps the CPU pipeline, with these warnings, where
-        # its device augmentation cannot run; elsewhere it would defer
         if config.steps_per_call > 1 and not config.multi_scale_sizes:
             print("warning: preprocessor.pipeline.device='tpu' requires "
                   "single-process, non-scanned training; using the CPU "
@@ -274,11 +284,10 @@ def main(argv=None):
                   "stages for debug images; using the CPU pipeline instead "
                   "of pipeline.device='tpu'", file=sys.stderr)
         else:
-            raise NotImplementedError(
-                "preprocessor.pipeline.device 'tpu' (device augmentation) is not "
-                "ported to yolodl_torch yet (ROADMAP A13); use 'cpu'")
+            defer_images = True
     stream_cfg = TrainingStreamConfig(
         batch_size=config.batch_size,
+        defer_images=defer_images,
         seed=0,
         mosaic_prob=pre.mosaic_prob,
         mixup_prob=pre.mixup_prob,
@@ -637,7 +646,7 @@ def main(argv=None):
             if imgs is not None and \
                     obj.shape[0] == last_batch["infos"][-1].flat_end:
                 logger.log_objectness_heatmap(
-                    step, np.asarray(imgs[0]), obj, last_batch["infos"])
+                    step, _host(imgs[0]), obj, last_batch["infos"])
         current_step["n"] = step
         batch_rate.add(1)
         record_rate.add(config.batch_size)
@@ -654,7 +663,7 @@ def main(argv=None):
                 and last_batch.get("gt") is not None):
             imgs = last_batch["images"]
             gt_boxes, gt_mask = last_batch["gt"]
-            infer_one(step, imgs[0], gt_boxes[0], gt_mask[0])
+            infer_one(step, _host(imgs[0]), gt_boxes[0], gt_mask[0])
         saved = False
         if (evaluator is not None and (step // config.eval_interval)
                 > ((step - window) // config.eval_interval)):
@@ -705,6 +714,12 @@ def main(argv=None):
     # multi-step calls stack HOST arrays into one k-step upload
     if scan_k > 1:
         source = ((rec, None) for rec in iter(stream))
+    elif stream_cfg.defer_images:
+        # the augment program runs on the device and yields device-resident
+        # batches, the contract of device_prefetch
+        from ..data.device_augment import apply_device_augmentation
+
+        source = apply_device_augmentation(iter(stream), stream_cfg, device)
     else:
         source = device_prefetch(iter(stream), device)
     try:
@@ -763,6 +778,17 @@ def main(argv=None):
             profiler.stop()
         saver.flush()
         logger.close()
+
+
+def _host(image):
+    """An image of the last batch as a host f32 array: the CPU pipeline's
+    are numpy already, the device augmentation's are tensors on the device."""
+    import numpy as np
+    import torch
+
+    if isinstance(image, torch.Tensor):
+        return image.detach().to("cpu", torch.float32).numpy()
+    return np.asarray(image)
 
 
 def cli():

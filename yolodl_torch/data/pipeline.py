@@ -15,9 +15,9 @@ mask — the fixed-shape contract of the on-device matcher.
 Counterpart of ``yolodl_tpu/data/pipeline.py``, with the same slot RNG keys
 ``(seed, epoch, slot)`` and the same draws, so ``ordered=True`` batches are
 bit-identical to the reference's and a ``start_records`` resume replays its
-order.  ``defer_images`` (the device augmentation of
-``preprocessor.pipeline.device="tpu"``) is not ported: it raises naming
-ROADMAP A13.
+order.  With ``defer_images`` (``preprocessor.pipeline.device`` "cuda") a
+slot draws the same parameters, computes the labels here and leaves the
+pixels to ``data/device_augment.py``.
 """
 
 from __future__ import annotations
@@ -71,17 +71,20 @@ class TrainingStreamConfig:
     # after each augmentation stage (the reference broadcasts per-stage debug
     # images to its logger, training_stream.rs:340-577)
     debug_hook: Optional[object] = None
-    # defer_images=True: the reference's device augmentation
-    # (preprocessor.pipeline.device="tpu"), not ported
+    # defer_images: ship the pack's image slots as u8 (a quarter of the
+    # host-to-device bytes; exact for decoded u8/255 sources, 1/255-rounded
+    # for synthetic floats).  False keeps f32 for bitwise host-parity tests.
+    pack_uint8: bool = True
+    # defer_images=True: sample every augmentation parameter from the SAME
+    # per-slot RNG stream but leave the pixel work (jitter/warp/mix) to the
+    # device augment program (preprocessor.pipeline.device "cuda"; see
+    # data/device_augment.py).  Label geometry is still computed here on the
+    # host, so boxes/classes/mask are identical to the CPU path.
     defer_images: bool = False
 
     def __post_init__(self):
         from .mosaic import CutMixMixer, MixUpMixer
 
-        if self.defer_images:
-            raise NotImplementedError(
-                "device augmentation (defer_images, preprocessor.pipeline.device "
-                "'tpu') is not ported to yolodl_torch yet (ROADMAP A13)")
         if self.mosaic_prob + self.mixup_prob + self.cutmix_prob > 1.0 + 1e-9:
             raise ValueError("mix-kind probabilities must sum to <= 1")
         if self.mixup is None:
@@ -94,14 +97,19 @@ class TrainingStreamConfig:
 class TrainingRecord:
     epoch: int
     step: int
-    images: np.ndarray   # [B, 3, H, W] float32
+    images: np.ndarray   # [B, 3, H, W] float32 (None while deferred)
     boxes: np.ndarray    # [B, M, 4] float32 ratio cycxhw
     classes: np.ndarray  # [B, M] int32
     mask: np.ndarray     # [B, M] bool
     timing: Timing
-    # device_prefetch on a card: CUDA events recorded before and after the
-    # batch's copies on the upload stream (its device time of the H2D copy)
+    # device_prefetch / apply_device_augmentation on a card: CUDA events
+    # recorded before and after the batch's copies on the upload stream (its
+    # device time of the H2D copy)
     upload_events: Optional[Tuple] = None
+    # defer_images: the packed augmentation inputs and parameters of the
+    # device program (device_augment.pack_deferred_batch); images is None
+    # until apply_device_augmentation fills it with the augmented batch
+    deferred: Optional[dict] = None
 
 
 def pad_targets(
@@ -135,6 +143,16 @@ class TrainingStream:
         self.loader = loader
         self.config = config
 
+    @property
+    def k_max(self) -> int:
+        """Static image-slot count a deferred batch ships per record (the
+        most any enabled mix kind needs; unused slots stay zero)."""
+        if self.config.mosaic_prob > 0:
+            return 4
+        if self.config.mixup_prob > 0 or self.config.cutmix_prob > 0:
+            return 2
+        return 1
+
     # -- single-record processing (one pipeline slot) --------------------
 
     def _make_record(self, indices: Tuple[int, ...], rng: np.random.Generator,
@@ -163,6 +181,9 @@ class TrainingStream:
 
         if cfg.debug_hook is not None:
             cfg.debug_hook("load", loaded[0])
+
+        if cfg.defer_images:
+            return self._make_deferred(mix_kind, loaded, rng, timing)
 
         # probability gates draw from rng only when < 1 so fully-on configs
         # keep their exact augmentation streams (determinism tests)
@@ -201,6 +222,65 @@ class TrainingStream:
         if cfg.debug_hook is not None and mix_kind != "none":
             cfg.debug_hook(mix_kind, result)
         return result
+
+    def _make_deferred(self, mix_kind: str, loaded: List[DataRecord],
+                       rng: np.random.Generator, timing: Timing):
+        """defer_images mode: draw the EXACT RNG stream the host path draws
+        (applying a sampled augmentation consumes no randomness, so
+        sampling-then-deferring keeps every later draw aligned), compute the
+        label geometry here, and leave the pixel work to the device program."""
+        from .device_augment import (
+            MIX_CUTMIX, MIX_MIXUP, MIX_MOSAIC, MIX_NONE, DeferredRecord,
+        )
+
+        cfg = self.config
+        jit_params = None
+        if cfg.color_jitter is not None and (
+                cfg.color_jitter_prob >= 1.0
+                or rng.random() < cfg.color_jitter_prob):
+            jit_params = [cfg.color_jitter.sample(rng) for _ in loaded]
+
+        transforms: List[Optional[np.ndarray]] = [None] * len(loaded)
+        if cfg.random_affine is not None and (
+                cfg.affine_prob >= 1.0 or rng.random() < cfg.affine_prob):
+            with timing.timed("affine_boxes"):
+                eye = np.eye(3)
+                for i, rec in enumerate(loaded):
+                    t = cfg.random_affine.sample_transform(rng)
+                    if np.allclose(t, eye):
+                        continue  # the host path skips identity outright
+                    transforms[i] = t
+                    boxes, classes = cfg.random_affine.transform_boxes(
+                        t, rec.boxes, rec.classes)
+                    loaded[i] = DataRecord(rec.image, boxes, classes)
+
+        with timing.timed("mix_boxes"):
+            if mix_kind == "mosaic":
+                pivot = cfg.mosaic.sample(rng)
+                boxes, classes = cfg.mosaic.mix_boxes(loaded, *pivot)
+                kind, params = MIX_MOSAIC, pivot
+            elif mix_kind == "mixup":
+                lam = cfg.mixup.sample(rng)
+                boxes = np.concatenate([loaded[0].boxes, loaded[1].boxes], axis=0)
+                classes = np.concatenate(
+                    [loaded[0].classes, loaded[1].classes], axis=0)
+                kind, params = MIX_MIXUP, (lam,)
+            elif mix_kind == "cutmix":
+                bnd = cfg.cutmix.sample(rng)
+                boxes, classes = cfg.cutmix.mix_boxes(loaded[0], loaded[1], bnd)
+                kind, params = MIX_CUTMIX, bnd
+            else:
+                boxes, classes = loaded[0].boxes, loaded[0].classes
+                kind, params = MIX_NONE, ()
+        return DeferredRecord(
+            images=[rec.image for rec in loaded],
+            jit_params=jit_params,
+            transforms=transforms,
+            mix_kind=kind,
+            mix_params=params,
+            boxes=boxes,
+            classes=classes,
+        )
 
     # -- epoch/step index plan -------------------------------------------
 
@@ -327,11 +407,20 @@ class TrainingStream:
                         timing.merge(rec_timing)
                         batch.append(rec)
                 with timing.timed("batchify"):
-                    images = np.stack([r.image for r in batch]).astype(np.float32)
+                    deferred = None
+                    if cfg.defer_images:
+                        from .device_augment import pack_deferred_batch
+
+                        images = None
+                        deferred = pack_deferred_batch(
+                            batch, self.k_max, uint8=cfg.pack_uint8)
+                    else:
+                        images = np.stack([r.image for r in batch]).astype(np.float32)
                     boxes, classes, mask = pad_targets(batch, cfg.max_gt)
                 yield TrainingRecord(
                     epoch=epoch, step=step, images=images, boxes=boxes,
                     classes=classes, mask=mask, timing=timing,
+                    deferred=deferred,
                 )
                 step += 1
         finally:
@@ -340,9 +429,9 @@ class TrainingStream:
 
 def lookahead_map(iterator, transform, depth: int = 2):
     """Run ``transform(item)`` on a worker thread ``depth`` items ahead of
-    consumption — the generic double-buffer behind device_prefetch,
-    replacing the reference's flume channel + spawn_blocking to_device at
-    multi_gpu.rs:139-153."""
+    consumption — the generic double-buffer behind device_prefetch and the
+    device augmentation, replacing the reference's flume channel +
+    spawn_blocking to_device at multi_gpu.rs:139-153."""
     buf: "queue.Queue" = queue.Queue(maxsize=depth)
     stop = threading.Event()
 
