@@ -238,7 +238,33 @@ result line:
    through zoo.load_darknet_model bit-identical, over 40 frames of one
    synthetic sequence: B1's counters zeroed right before and read right
    after, one launch of each kernel per batch; img/s.
-12. card  — `nvidia-smi --query-gpu=name,power.limit` as it prints it.
+12. dp    — data-parallel training and multi-device inference (ROADMAP
+   A14a, yolodl_torch/parallel/).  First make_dp_train_step at world
+   size 1 over NCCL (one rank with a card of its own): the flagship at
+   608², b16, bf16, default TrainConfig(), phase train's batch, 2 steps
+   against the plain make_train_step, bit for bit (losses, parameters, BN
+   statistics), with cuDNN's deterministic algorithms and the plain step
+   run twice as a control; then 3 more steps of each, their median ms,
+   and the all-reduce's ms of the flat 211.7 MB gradient buffer (CUDA
+   events).  Then 2 ranks on cuda:0
+   over gloo (NCCL refuses two ranks on one device), started by
+   parallel/mesh.py launch_ranks: the flagship b16 as 8 rows a rank, one
+   warm-up and 3 timed steps (CUDA events), the all-reduce's ms, the
+   two ranks' parameters bit-identical (sha256); yolov4-tiny at 64² with
+   seeded BN, one f32 SGD step of 8 rows a rank, on the card and on the
+   CPU in the same ranks: loss within rel 1e-5, num_matched equal, every
+   tensor within 1e-4 · max|cpu| (tests/test_torch_dp.py's limits).  Then
+   train_main with MultiDevice [cuda:0, cuda:0] on a toy NEWSLAB
+   workspace under build/chip_smoke_dp/ (removed at the end), 3 steps in
+   a subprocess: exit 0, the "backend gloo (ranks share cuda:0)" line, a
+   checkpoint a step from rank 0 and none from rank 1.  Last,
+   DetectionService on the flagship (b8, bf16) with two replicas on
+   cuda:0, beside one replica at b4 and one at b8, 16 frames from 16
+   threads: B1's counters zeroed right before and read right after, each
+   kernel launched once per replica per served batch; the two replicas'
+   detections equal to the b4 replica's (the same forward shape), and
+   the share equal to the b8 replica's is printed.
+13. card  — `nvidia-smi --query-gpu=name,power.limit` as it prints it.
 
 The line before the last lists the kernels; the last line is
 {"ok": true, "device": {...}}.  TF32 is switched off for every f32
@@ -335,6 +361,16 @@ DEPLOY_FOLD_BATCH = 2        # folded vs unfolded f32 forward at 608²
 DEPLOY_FOLD_TOL = 1e-4       # ... max|Δ| / max|unfolded|
 DEPLOY_ARTIFACT_TOL = 1e-3   # artifact vs live bf16, should the program not be bit-identical
 DEPLOY_REQUESTS, DEPLOY_CLIENTS = 32, 8
+DP_ROOT = os.path.join(REPO, "build", "chip_smoke_dp")  # removed at the end
+DP_STEPS = 2                  # world size 1: steps held bit for bit against the plain step
+DP_TIMED = 3                  # ... then steps timed by CUDA events, their median reported
+DP_RANK_TIMED = 3             # 2 ranks: timed steps after one warm-up step
+DP_TINY_CFG = os.path.join(REPO, "cfg", "darknet", "yolov4-tiny.cfg")
+DP_TINY_SIZE, DP_TINY_BATCH = 64, 16  # card vs CPU, 8 rows a rank (tests/test_torch_dp.py)
+DP_TINY_TOL = 1e-4            # card vs CPU after one SGD step: tests/test_torch_dp.py's limit
+DP_TRAIN_MAIN_STEPS = 3
+DP_SERVE_FRAMES = 16          # two batches of 8, 4 rows a replica
+DP_TIMEOUT = 600              # seconds for the ranks and the train_main run
 A4_MODELS = (("yolov2", 128), ("cspx-p7-mish", 128))  # card vs CPU; p7's stride is 128
 YOLOV2_CFG = os.path.join(REPO, "cfg", "darknet", "yolov2.cfg")
 YOLOV2_SIZE = 416            # yolov2.cfg's own input size
@@ -3424,6 +3460,402 @@ def phase_classify(iou) -> dict:
     return {"occlusion_track_detect": line["occlusion_track_detect"]["launches"]}
 
 
+# -- phase dp: data-parallel training and multi-device inference (A14a)
+
+def param_digest(model) -> str:
+    """sha256 over every parameter's and buffer's bytes, in state_dict order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for v in model.state_dict().values():
+        h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_step_runs(model_fn, config, batch, steps, timed, mesh=None):
+    """``steps`` steps of the flagship from ``model_fn()``, then ``timed``
+    more: the plain step (``mesh`` None) or make_dp_train_step over
+    ``mesh`` → (the first ``steps`` losses, the state dict on the host
+    after them, the median ms by events of the timed steps)."""
+    from yolodl_torch.parallel import make_dp_train_step, replicate_state
+    from yolodl_torch.train import make_train_step, train_init
+
+    model = model_fn()
+    ts, opt = train_init(model, config)
+    if mesh is None:
+        step = make_train_step(model, opt, config)
+    else:
+        ts = replicate_state(mesh, ts)
+        step = make_dp_train_step(model, opt, config, mesh)
+    losses = [float(step(ts, *batch)[1]["total_loss"]) for _ in range(steps)]
+    state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    ms = statistics.median(timed_ms(lambda: step(ts, *batch), DEVICE) for _ in range(timed))
+    return losses, state, ms
+
+
+def timed_ms(fn, device) -> float:
+    """ms of one ``fn()`` by CUDA events on a card (under gloo the host
+    blocks inside it, and the events span that too), by the host clock on
+    the CPU."""
+    if torch.device(device).type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def all_reduce_ms(mesh, numel, n=5) -> float:
+    """Median ms of one all-reduce of a flat f32 buffer of ``numel`` on
+    ``mesh``'s device, after one untimed."""
+    buf = torch.ones(numel, dtype=torch.float32, device=mesh.device)
+    return statistics.median([timed_ms(lambda: mesh.all_reduce_(buf), mesh.device)
+                              for _ in range(n + 1)][1:])
+
+
+def dp_world_one(darknet) -> dict:
+    """make_dp_train_step at world size 1 over NCCL against the plain step,
+    bit for bit after DP_STEPS steps (each run deterministic: cuDNN's
+    deterministic algorithms, and the plain step run twice as a control)."""
+    from yolodl_torch.graph.from_darknet import graph_from_darknet
+    from yolodl_torch.models import YoloModel
+    from yolodl_torch.parallel.mesh import destroy_process_group, free_port, init_process_group
+    from yolodl_torch.train import TrainConfig
+
+    def model_fn():
+        return YoloModel(graph_from_darknet(darknet), device=DEVICE,
+                         generator=torch.Generator().manual_seed(0))
+
+    images, boxes, classes, mask = synthetic_batch(TRAIN_BATCH, IMAGE_SIZE)
+    batch = (torch.from_numpy(images).to(torch.bfloat16).to(DEVICE),
+             *(torch.from_numpy(a).to(DEVICE) for a in (boxes, classes, mask)))
+    mesh = init_process_group(DEVICE, init_method=f"tcp://127.0.0.1:{free_port()}",
+                              rank=0, world_size=1)
+    want = "nccl" if DEVICE == "cuda" else "gloo"
+    if mesh.backend != want:
+        raise AssertionError(f"world size 1 on {DEVICE}: backend {mesh.backend}, not {want}")
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        runs = {name: dp_step_runs(model_fn, TrainConfig(), batch, DP_STEPS, DP_TIMED,
+                                   mesh if name == "dp" else None)
+                for name in ("plain", "plain_again", "dp")}
+        numel = sum(v.numel() for k, v in runs["plain"][1].items()
+                    if not k.endswith((".mean", ".var")))  # the parameters
+        reduce_ms = all_reduce_ms(mesh, numel)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+        destroy_process_group()
+    torch.cuda.empty_cache()
+
+    def same(a, b):
+        return a[0] == b[0] and all(torch.equal(a[1][k], b[1][k]) for k in a[1])
+
+    control = same(runs["plain"], runs["plain_again"])
+    if not control:
+        raise AssertionError("the plain flagship step is not bit-reproducible here, so "
+                             "the world-size-1 step cannot be held to it bit for bit")
+    if not same(runs["dp"], runs["plain"]):
+        worst = max(float((runs["dp"][1][k].float() - v.float()).abs().max())
+                    for k, v in runs["plain"][1].items())
+        raise AssertionError(f"world size 1 DP step != plain step: losses {runs['dp'][0]} vs "
+                             f"{runs['plain'][0]}, max|d| {worst}")
+    return {"backend": mesh.backend, "steps": DP_STEPS, "bit_identical": True,
+            "losses": runs["dp"][0], "timed_steps": DP_TIMED,
+            "plain_step_ms_median": runs["plain"][2],
+            "plain_again_step_ms_median": runs["plain_again"][2],
+            "dp_step_ms_median": runs["dp"][2], "all_reduce_ms": reduce_ms,
+            "all_reduce_mb": 4 * numel / 1e6}
+
+
+def dp_rank() -> None:
+    """One rank of phase dp's 2-rank run (``python3 -c "import chip_smoke;
+    chip_smoke.dp_rank()"`` under launch_ranks' variables): the flagship at
+    b16 over 2 ranks of 8 rows on this rank's device, then yolov4-tiny at
+    64² (seeded BN, as the CPU tests' weights) one SGD step on the card and
+    on the CPU; results to
+    DP_ROOT/rank<r>.json and .npz.  The device and sizes come from
+    DP_ROOT/spec.json, written by the parent."""
+    sys.path.insert(0, REPO)
+    with open(os.path.join(DP_ROOT, "spec.json")) as f:
+        spec = json.load(f)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from yolodl_torch.config import darknet_cfg as dk
+    from yolodl_torch.graph.from_darknet import graph_from_darknet
+    from yolodl_torch.models import YoloModel
+    from yolodl_torch.parallel import (init_process_group, make_dp_train_step, replicate_state,
+                                       shard_batch)
+    from yolodl_torch.parallel.mesh import destroy_process_group
+    from yolodl_torch.train import TrainConfig, train_init
+    from yolodl_torch.train.lr_schedule import LrScheduleConfig
+
+    mesh = init_process_group(spec["device"])
+    on_card = mesh.device.type == "cuda"
+    out = {"rank": mesh.rank, "backend": mesh.backend, "reason": mesh.reason,
+           "device": str(mesh.device)}
+
+    # the flagship, bf16, default TrainConfig(), 8 rows a rank
+    model = YoloModel(graph_from_darknet(dk.Darknet.load(CFG)), device=mesh.device,
+                      generator=torch.Generator().manual_seed(0))
+    ts, opt = train_init(model, TrainConfig())
+    ts = replicate_state(mesh, ts)
+    step = make_dp_train_step(model, opt, TrainConfig(), mesh)
+    images, boxes, classes, mask = shard_batch(
+        mesh, synthetic_batch(spec["batch"], spec["image_size"]))
+    batch = (torch.from_numpy(images).to(torch.bfloat16).to(mesh.device),
+             *(torch.from_numpy(a).to(mesh.device) for a in (boxes, classes, mask)))
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for i in range(1 + DP_RANK_TIMED):
+        ms = timed_ms(lambda: losses.append(step(ts, *batch)[1]), mesh.device)
+        if i:
+            step_ms.append(ms)
+    m = losses[-1]
+    losses = [float(x["total_loss"]) for x in losses]
+    out.update(rows=int(batch[0].shape[0]), losses=losses, step_ms=step_ms,
+               num_matched=int(m["num_matched"]), digest=param_digest(model),
+               all_reduce_ms=all_reduce_ms(mesh, sum(p.numel() for p in model.parameters())),
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card else None)
+    del model, opt, ts, batch
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # yolov4-tiny, 64², f32, one SGD step on the card, then on the CPU
+    config = TrainConfig(optimizer="sgd", lr=LrScheduleConfig(kind="constant", lr=3e-4))
+    tiny = shard_batch(mesh, synthetic_batch(spec["tiny_batch"], spec["tiny_size"], seed=2))
+    arrays = {}
+    for where in (mesh.device, torch.device("cpu")):
+        model = YoloModel(graph_from_darknet(dk.Darknet.load(DP_TINY_CFG)), device=where,
+                          generator=torch.Generator().manual_seed(0))
+        randomize_bn(model, 0)  # BN away from init, as the CPU tests' weights
+        ts, opt = train_init(model, config)
+        ts = replicate_state(mesh, ts)
+        ts, m = make_dp_train_step(model, opt, config, mesh)(
+            ts, *(torch.from_numpy(a).to(where) for a in tiny))
+        tag = where.type
+        out[f"tiny_{tag}_loss"] = float(m["total_loss"])
+        out[f"tiny_{tag}_num_matched"] = int(m["num_matched"])
+        out[f"tiny_{tag}_digest"] = param_digest(model)
+        arrays.update({f"{tag}/{k}": v.detach().cpu().numpy()
+                       for k, v in model.state_dict().items()})
+    np.savez(os.path.join(DP_ROOT, f"rank{mesh.rank}.npz"), **arrays)
+    with open(os.path.join(DP_ROOT, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(out, f)
+    destroy_process_group()
+
+
+def dp_two_ranks() -> dict:
+    """Two ranks on one card over gloo (NCCL refuses two ranks on one
+    device): the ranks' parameters bit-identical, card = CPU on yolov4-tiny."""
+    from yolodl_torch.parallel.mesh import launch_ranks
+
+    write_json(os.path.join(DP_ROOT, "spec.json"), {
+        "device": f"{DEVICE}:0" if DEVICE == "cuda" else DEVICE, "image_size": IMAGE_SIZE,
+        "batch": TRAIN_BATCH, "tiny_size": DP_TINY_SIZE, "tiny_batch": DP_TINY_BATCH})
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    launch_ranks([sys.executable, "-c", "import chip_smoke; chip_smoke.dp_rank()"], 2,
+                 env=env, cwd=REPO, timeout=DP_TIMEOUT)
+    wall_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(DP_ROOT, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    r0, r1 = ranks
+    want = "ranks share cuda:0" if DEVICE == "cuda" else "ranks run on the CPU"
+    if r0["backend"] != "gloo" or r0["reason"] != want:
+        raise AssertionError(f"2 ranks on one card: {r0['backend']} ({r0['reason']})")
+    for key in ("digest", "losses", "tiny_cpu_digest", f"tiny_{DEVICE}_digest"):
+        if r0[key] != r1[key]:
+            raise AssertionError(f"the two ranks differ in {key}")
+    if not all(np.isfinite(r0["losses"])) or r0["num_matched"] <= 0:
+        raise AssertionError(f"flagship DP losses {r0['losses']}, matched {r0['num_matched']}")
+    # card vs CPU, tests/test_torch_dp.py's limits
+    l_card, l_cpu = r0[f"tiny_{DEVICE}_loss"], r0["tiny_cpu_loss"]
+    if not abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu):
+        raise AssertionError(f"tiny DP loss: card {l_card} vs cpu {l_cpu}")
+    if r0[f"tiny_{DEVICE}_num_matched"] != r0["tiny_cpu_num_matched"]:
+        raise AssertionError("tiny DP num_matched: card != cpu")
+    with np.load(os.path.join(DP_ROOT, "rank0.npz")) as f:
+        worst, worst_key = max((float(np.abs(f[f"{DEVICE}/{k[4:]}"] - f[k]).max())
+                                / max(float(np.abs(f[k]).max()), 1e-30), k)
+                               for k in f.files if k.startswith("cpu/"))
+    if not worst <= DP_TINY_TOL:
+        raise AssertionError(f"tiny DP state: card vs cpu {worst} of max at {worst_key} "
+                             f"> {DP_TINY_TOL}")
+    return {"backend": r0["backend"], "reason": r0["reason"], "rows_a_rank": r0["rows"],
+            "losses": r0["losses"], "params_bit_identical": True,
+            "step_ms": r0["step_ms"], "step_ms_rank1": r1["step_ms"],
+            "all_reduce_ms": r0["all_reduce_ms"], "peak_memory_gb": r0["peak_memory_gb"],
+            "tiny_card_vs_cpu": {"loss_card": l_card, "loss_cpu": l_cpu,
+                                 "state_err_of_max": worst, "worst": worst_key},
+            "wall_s": wall_s}
+
+
+def dp_workspace(root) -> str:
+    """A NEWSLAB training workspace: 8 PNGs of 48² with a red square, a
+    three-conv model at 32², MultiDevice on cuda:0 twice, batch 4."""
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    for i in range(8):
+        arr = rng.integers(0, 256, (48, 48, 3), dtype=np.uint8)
+        arr[10:30, 10:30] = (255, 0, 0)
+        Image.fromarray(arr).save(os.path.join(root, "images", f"i{i}.png"))
+    with open(os.path.join(root, "classes.txt"), "w") as f:
+        f.write("square\n")
+    with open(os.path.join(root, "label.csv"), "w") as f:
+        f.write("\n".join(["image_file,class_name,cy,cx,h,w"]
+                          + [f"i{i}.png,square,20,20,20,20" for i in range(8)]) + "\n")
+    model = {"main_group": "m", "groups": {"m": [
+        {"name": "input", "kind": "Input", "shape": ["_", 3, 32, 32]},
+        {"kind": "ConvBn2D", "c": 8, "k": 3, "s": 2},
+        {"kind": "ConvBn2D", "c": 12, "k": 3, "s": 2},
+        {"name": "head", "kind": "ConvBn2D", "c": 6, "k": 1, "act": "linear",
+         "bn": {"enabled": False}},
+        {"name": "det", "kind": "Detect2D", "classes": 1, "anchors": [[0.4, 0.4]]},
+        {"name": "output", "kind": "MergeDetect2D", "from": ["det"]}]}}
+    write_json(os.path.join(root, "model.json5"), model)
+    device = f"{DEVICE}:0" if DEVICE == "cuda" else DEVICE
+    return write_json(os.path.join(root, "train.json5"), {
+        "version": "0.1.0",
+        "model": {"kind": "NewslabV1", "cfg_file": "model.json5"},
+        "dataset": {"kind": {"type": "Csv", "image_size": 32, "input_channels": 3,
+                             "image_dir": os.path.join(root, "images"),
+                             "label_file": os.path.join(root, "label.csv"),
+                             "classes_file": os.path.join(root, "classes.txt")}},
+        "logging": {"dir": os.path.join(root, "logs")},
+        "preprocessor": {"mixup": {"mosaic_prob": 0.5, "mosaic_margin": 0.3}},
+        "training": {"batch_size": 4, "save_checkpoint_steps": 1,
+                     "device_config": {"type": "MultiDevice", "devices": [device, device]},
+                     "load_checkpoint": {"type": "Disabled"}},
+    })
+
+
+def dp_train_main() -> dict:
+    """train_main with MultiDevice [cuda:0, cuda:0] as a subprocess: exit 0,
+    the gloo line, checkpoints from rank 0 only."""
+    import glob
+
+    config = dp_workspace(os.path.join(DP_ROOT, "train_main"))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "yolodl_torch.cli.train_main", "--config-file",
+                          config, "--max-steps", str(DP_TRAIN_MAIN_STEPS), *CLI_DEVICE_ARGS],
+                         capture_output=True, text=True, cwd=REPO, timeout=DP_TIMEOUT,
+                         env=dict(os.environ, PYTHONPATH=REPO))
+    wall_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"train_main MultiDevice exited {res.returncode}:\n"
+                             f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+    want = ("ranks share cuda:0" if DEVICE == "cuda" else "ranks run on the CPU")
+    if f"dp: 2 ranks, backend gloo ({want})" not in res.stdout:
+        raise AssertionError(f"no backend line:\n{res.stdout[-2000:]}")
+    logs = os.path.join(os.path.dirname(config), "logs")
+    chief = glob.glob(os.path.join(logs, "*[0-9]", "checkpoints", "*.ckpt"))
+    others = glob.glob(os.path.join(logs, "*-r1", "checkpoints", "*.ckpt"))
+    if len(chief) != DP_TRAIN_MAIN_STEPS or others:
+        raise AssertionError(f"checkpoints: rank 0 {len(chief)}, rank 1 {len(others)}")
+    return {"exit_code": 0, "steps": DP_TRAIN_MAIN_STEPS, "rank0_checkpoints": len(chief),
+            "rank1_checkpoints": 0, "wall_s": wall_s}
+
+
+def dp_serve(iou, darknet) -> dict:
+    """DetectionService with two replicas on one card against one replica
+    at the replicas' batch: the same detections; one launch of each B1
+    kernel per replica per served batch."""
+    from yolodl_torch.graph.from_darknet import graph_from_darknet
+    from yolodl_torch.loss import nms as nms_mod
+    from yolodl_torch.models import YoloModel
+    from yolodl_torch.serve import DetectionService
+
+    nms_kind, nms_beta = nms_mod.nms_options_from_darknet(darknet)
+    model = YoloModel(graph_from_darknet(darknet), device=DEVICE,
+                      generator=torch.Generator().manual_seed(0))
+    device = f"{DEVICE}:0" if DEVICE == "cuda" else DEVICE
+    frames = [np.random.default_rng(100 + i).integers(0, 256, (IMAGE_SIZE, IMAGE_SIZE, 3),
+                                                      dtype=np.uint8)
+              for i in range(DP_SERVE_FRAMES)]
+    kernels = (iou.nms_conflict_bits, iou.nms_keep_from_bits)
+    out, results = {}, {}
+    for name, kw in (("two_replicas", dict(devices=[device, device], batch_size=BATCH)),
+                     ("one_replica_half_batch", dict(batch_size=BATCH // 2)),
+                     ("one_replica", dict(batch_size=BATCH))):
+        svc = DetectionService(model, image_size=IMAGE_SIZE, window_ms=500.0,
+                               nms_kind=nms_kind, nms_beta=nms_beta, device=device, **kw)
+        svc.warmup()
+        got = [None] * len(frames)
+
+        def client(i):
+            got[i] = svc.submit_u8(frames[i], timeout=300)
+
+        for fn in kernels:
+            fn.launches = 0
+        svc.start()
+        try:
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(i,)) for i in range(len(frames))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            wall = time.perf_counter() - t0
+            snap = svc.stats.snapshot(svc.batch_size)
+        finally:
+            svc.shutdown()
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        replicas = len(svc.devices)
+        if snap["errors"] or any(r is None for r in got):
+            raise AssertionError(f"{name}: serving failed: {snap}")
+        if DEVICE == "cuda" and set(launches.values()) != {replicas * snap["batches"]}:
+            raise AssertionError(f"{name}: launches {launches} != {replicas} x "
+                                 f"{snap['batches']} batches")
+        results[name] = got
+        out[name] = {"replicas": replicas, "batches": snap["batches"],
+                     "launches": launches, "img_per_s": len(frames) / wall,
+                     "p50_ms": snap.get("latency_ms", {}).get("p50"),
+                     "detections": sum(len(r) for r in got)}
+    if results["two_replicas"] != results["one_replica_half_batch"]:
+        raise AssertionError("two replicas' detections != one replica's at their batch")
+    same = sum(a == b for a, b in zip(results["two_replicas"], results["one_replica"]))
+    out["images_equal_to_one_replica_full_batch"] = f"{same}/{len(frames)}"
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dp(iou) -> dict:
+    """Data-parallel training and multi-device inference (ROADMAP A14a)."""
+    import shutil
+
+    from yolodl_torch.config import darknet_cfg as dk
+
+    shutil.rmtree(DP_ROOT, ignore_errors=True)
+    os.makedirs(DP_ROOT)
+    darknet = dk.Darknet.load(CFG)
+    try:
+        world_one = dp_world_one(darknet)
+        two_ranks = dp_two_ranks()
+        train_main = dp_train_main()
+        serve = dp_serve(iou, darknet)
+    finally:
+        shutil.rmtree(DP_ROOT, ignore_errors=True)
+    emit({"phase": "dp", "model": "yolov4-csp", "image_size": IMAGE_SIZE,
+          "batch": TRAIN_BATCH, "dtype": "bfloat16", "world_size_1": world_one,
+          "two_ranks_one_card": two_ranks, "train_main_multidevice": train_main,
+          "serve": serve, "card": card_line()})
+    return {"dp_serve_two_replicas": serve["two_replicas"]["launches"],
+            "dp_serve_one_replica_half_batch": serve["one_replica_half_batch"]["launches"],
+            "dp_serve_one_replica": serve["one_replica"]["launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3454,6 +3886,7 @@ def main() -> int:
     by_path.update(phase_darknet_loss(iou, train_ms))
     by_path.update(phase_deploy(iou))
     by_path.update(phase_classify(iou))
+    by_path.update(phase_dp(iou))
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

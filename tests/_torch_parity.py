@@ -807,3 +807,261 @@ def _named(tree, prefix=""):
             yield from _named(v, f"{prefix}{k}/")
         else:
             yield f"{prefix}{k}", v
+
+
+# -- data parallelism (test_torch_dp*.py): ranks over gloo in subprocesses
+
+# One rank of a data-parallel run, as ``python -c DP_RANK_SCRIPT spec.json``:
+# joins the group from torchrun's variables (start_ranks sets them), then
+# for each case of the spec builds the model, loads the shared initial
+# weights (rank 1 first perturbs its own, so that replicate_state must
+# undo it), takes the case's steps on its rows of each global batch, and
+# writes its metrics, its state after the first step and its final state
+# to <out>.r<rank>.npz.  It imports
+# neither JAX nor the reference.
+DP_RANK_SCRIPT = r'''
+import dataclasses, json, sys
+import numpy as np, torch
+torch.set_num_threads(1)
+from yolodl_torch.graph import Graph
+from yolodl_torch.graph.from_darknet import load_darknet_graph
+from yolodl_torch.models import YoloModel
+from yolodl_torch.parallel import (init_process_group, make_dp_train_step, replicate_state,
+                                   shard_batch)
+from yolodl_torch.parallel.mesh import destroy_process_group
+from yolodl_torch.train import loop
+from yolodl_torch.train.lr_schedule import LrScheduleConfig
+
+spec = json.load(open(sys.argv[1]))
+mesh = init_process_group(spec.get("device", "cpu"))
+data = np.load(spec["batches"])
+out = {}
+for name, case in spec["cases"].items():
+    path = case["model"]
+    graph = load_darknet_graph(path) if path.endswith(".cfg") else Graph.load_newslab_v1_json(path)
+    model = YoloModel(graph, device=mesh.device, remat=case.get("remat", "off"))
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in np.load(case["init"]).items()})
+    if mesh.rank:
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(1.5)
+    kw = dict(case["config"])
+    cfg = loop.TrainConfig(lr=LrScheduleConfig(kind="constant", lr=kw.pop("lr")), **kw)
+    if case.get("darknet"):
+        from yolodl_torch.config import darknet_cfg as dk
+        from yolodl_torch.loss.darknet_loss import head_params_from_darknet
+        size = data["images0"].shape[-1]
+        net = dk.Darknet.load(path)
+        cfg = dataclasses.replace(cfg, darknet_loss=(
+            graph.detect_head_input_keys(),
+            tuple(head_params_from_darknet(l, size, size) for l in net.layers
+                  if isinstance(l, dk.Yolo))))
+    ts, opt = loop.train_init(model, cfg)
+    ts = replicate_state(mesh, ts)
+    step = make_dp_train_step(model, opt, cfg, mesh, accum=case.get("accum", 1))
+    for i in range(case["steps"]):
+        batch = [torch.from_numpy(data[f"{k}{i}"]).to(mesh.device)
+                 for k in ("images", "boxes", "classes", "mask")]
+        ts, metrics = step(ts, *shard_batch(mesh, batch))
+        for k, v in metrics.items():
+            out[f"{name}/step{i}/{k}"] = v.cpu().numpy()
+        if i == 0 and case["steps"] > 1:
+            for k, v in model.state_dict().items():
+                out[f"{name}/first/{k}"] = v.cpu().numpy().copy()
+    for k, v in model.state_dict().items():
+        out[f"{name}/state/{k}"] = v.cpu().numpy()
+    if ts.ema_params is not None:
+        for k, v in ts.ema_params.items():
+            out[f"{name}/ema/{k}"] = v.cpu().numpy()
+    out[f"{name}/step"] = np.asarray(ts.step)
+np.savez(f"{spec['out']}.r{mesh.rank}.npz", **out)
+destroy_process_group()
+'''
+
+
+def start_ranks(cmd, n, env=None):
+    """``cmd`` as ranks 0 … n-1 of one gloo group on 127.0.0.1 (torchrun's
+    variables); → the processes, stderr piped."""
+    import subprocess
+    import sys
+
+    from yolodl_torch.parallel.mesh import free_port
+
+    port = free_port()
+    base = {**os.environ, "PYTHONPATH": REPO, **(env or {})}
+    return [subprocess.Popen([sys.executable, *cmd], cwd=REPO, stderr=subprocess.PIPE, text=True,
+                             env={**base, "RANK": str(r), "WORLD_SIZE": str(n),
+                                  "LOCAL_RANK": str(r), "MASTER_ADDR": "127.0.0.1",
+                                  "MASTER_PORT": str(port)})
+            for r in range(n)]
+
+
+def wait_ranks(procs, timeout=120):
+    """Wait for every rank; each must exit 0."""
+    for r, p in enumerate(procs):
+        _, err = p.communicate(timeout=timeout)
+        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{err}"
+
+
+def dp_batches(n, batch, size=TRAIN_SIZE, seed=0, num_classes=80):
+    """``n`` seeded global (images, boxes, classes, mask) numpy batches."""
+    rng = np.random.default_rng(seed)
+    return [(rng.uniform(0, 1, (batch, 3, size, size)).astype(np.float32),
+             *random_targets(batch, TRAIN_MAX_GT, seed * 100 + i, num_classes=num_classes))
+            for i in range(n)]
+
+
+def start_dp_ranks(tmp_path, cases, batches, n=2):
+    """Write the batches and the spec of ``cases`` ({name: {model, init
+    state_dict, config, steps, accum?, remat?, darknet?}}) under
+    ``tmp_path`` and start ``n`` ranks of DP_RANK_SCRIPT; → (processes,
+    the output prefix)."""
+    np.savez(tmp_path / "batches.npz", **{f"{k}{i}": x for i, b in enumerate(batches)
+                                          for k, x in zip(("images", "boxes", "classes", "mask"), b)})
+    spec_cases = {}
+    for name, case in cases.items():
+        init = tmp_path / f"{name}.init.npz"
+        np.savez(init, **{k: v.numpy() for k, v in case.pop("init").items()})
+        spec_cases[name] = {**case, "init": str(init)}
+    spec = {"batches": str(tmp_path / "batches.npz"), "cases": spec_cases,
+            "out": str(tmp_path / "dp")}
+    (tmp_path / "spec.json").write_text(json.dumps(spec))
+    procs = start_ranks(["-c", DP_RANK_SCRIPT, str(tmp_path / "spec.json")], n)
+    return procs, str(tmp_path / "dp")
+
+
+def reference_dp(jm, params, state, j_cfg, batches, n=2, accum=1):
+    """The reference's make_dp_train_step on a ``n``-device mesh over
+    ``batches`` → (TrainState after the first step, final TrainState,
+    [metrics as numpy])."""
+    from yolodl_tpu.parallel import make_dp_train_step, make_mesh, shard_batch
+    from yolodl_tpu.parallel.dp import replicate_state
+
+    mesh = make_mesh(n)
+    opt = j_loop.make_optimizer(j_cfg)
+    p = jax.tree_util.tree_map(jnp.asarray, params)
+    ts = j_loop.TrainState(p, jax.tree_util.tree_map(jnp.asarray, state), opt.init(p),
+                           jnp.zeros((), jnp.int32),
+                           jax.tree_util.tree_map(jnp.copy, p) if j_cfg.use_ema else None)
+    ts = replicate_state(mesh, ts)
+    step = make_dp_train_step(jm, opt, j_cfg, mesh, accum=accum)
+    out, first = [], None
+    for batch in batches:
+        ts, m = step(ts, *shard_batch(mesh, tuple(map(jnp.asarray, batch))))
+        out.append({k: np.asarray(v) for k, v in m.items()})
+        if first is None:
+            first = jax.tree_util.tree_map(np.array, ts)  # a copy: the step donates ts
+    return first, ts, out
+
+
+DP_TINY = os.path.join(REPO, "cfg", "darknet", "yolov4-tiny.cfg")
+
+
+def reference_darknet_spec(jm, path=DP_TINY, size=TRAIN_SIZE):
+    """The reference's ``TrainConfig.darknet_loss`` of a darknet cfg."""
+    from yolodl_tpu.config import darknet_cfg as jdk
+    from yolodl_tpu.loss.darknet_loss import head_params_from_darknet
+
+    net = jdk.Darknet.load(path)
+    return (jm.graph.detect_head_input_keys(),
+            tuple(head_params_from_darknet(l, size, size) for l in net.layers
+                  if isinstance(l, jdk.Yolo)))
+
+
+def dp_case_runs(tmp, cases, batches, extra=None):
+    """Both ranks run every case of ``cases`` ({name: {config, steps,
+    accum?, remat?, darknet?}} on yolov4-tiny from train_models()'s
+    weights, plus ``extra`` cases as given) while this process runs the
+    reference's DP step on each → ({name: reference_dp(…)}, [rank npz])."""
+    import copy
+    import dataclasses
+
+    from yolodl_tpu.graph.from_darknet import load_darknet_graph as j_graph
+
+    jm, params, state, tm = train_models()
+    init = {k: v.clone() for k, v in tm.state_dict().items()}
+    spec = {name: {"model": DP_TINY, "init": init, **copy.deepcopy(c)} for name, c in cases.items()}
+    procs, out = start_dp_ranks(tmp, {**spec, **(extra or {})}, batches)
+    refs = {}
+    for name, case in cases.items():
+        j_cfg, _ = train_configs(**case["config"])
+        model = jm
+        if case.get("remat"):
+            model = JYoloModel(j_graph(DP_TINY), spd_stem="off", remat="blocks")
+        if case.get("darknet"):
+            j_cfg = dataclasses.replace(j_cfg, darknet_loss=reference_darknet_spec(jm))
+        refs[name] = reference_dp(model, params, state, j_cfg, batches[:case["steps"]],
+                                  accum=case.get("accum", 1))
+    wait_ranks(procs)
+    return refs, [dict(np.load(f"{out}.r{r}.npz")) for r in range(2)]
+
+
+def assert_ranks_identical(ranks, name):
+    """Every array the two ranks wrote for case ``name`` is bit-identical."""
+    r0, r1 = ranks
+    keys = [k for k in r0 if k.startswith(name + "/")]
+    assert keys and keys == [k for k in r1 if k.startswith(name + "/")]
+    for k in keys:
+        np.testing.assert_array_equal(r0[k], r1[k], err_msg=k)
+
+
+def _dp_state_matches(rank, name, which, j_ts, tol):
+    prefix = f"{name}/{which}/"
+    sd = {k[len(prefix):]: torch.from_numpy(v) for k, v in rank.items() if k.startswith(prefix)}
+    params, state = params_to_jax(sd)
+    for mine, ref in ((flat_leaves(params), named_leaves(j_ts.params)),
+                      (flat_leaves(state), named_leaves(j_ts.state))):
+        assert mine.keys() == ref.keys()
+        for k in ref:
+            np.testing.assert_allclose(mine[k], ref[k], rtol=0,
+                                       atol=tol * float(np.abs(ref[k]).max()), err_msg=k)
+
+
+def assert_dp_matches_reference(rank, name, j_first, j_ts, j_metrics):
+    """A rank's metrics and state against reference_dp's, with
+    test_torch_dp.py's limits."""
+    for i, ref in enumerate(j_metrics):
+        got = {k.split("/", 2)[2]: v for k, v in rank.items() if k.startswith(f"{name}/step{i}/")}
+        assert set(got) == set(ref), (set(got) ^ set(ref))
+        np.testing.assert_allclose(got["total_loss"], ref["total_loss"], rtol=1e-5,
+                                   err_msg=f"step {i}")
+        assert int(got["num_matched"]) == int(ref["num_matched"]) > 0, i
+        for k, v in ref.items():  # the other means and the maxima
+            np.testing.assert_allclose(got[k], v, rtol=1e-3,
+                                       atol=1e-3 * float(np.abs(v).max()) + 1e-7, err_msg=k)
+    assert int(rank[f"{name}/step"]) == len(j_metrics)
+    if len(j_metrics) == 1:
+        _dp_state_matches(rank, name, "state", j_ts, 1e-4)
+    else:
+        _dp_state_matches(rank, name, "first", j_first, 1e-4)
+        _dp_state_matches(rank, name, "state", j_ts, 3e-4)
+
+
+def write_first_checkpoint(config_path, checkpoint_dir):
+    """One step of the port's training step on a train_main workspace's
+    model (seed 0, as train_main draws it) and recipe, saved with its
+    optimizer state as train_main saves it → the checkpoint's path.  A
+    ``FromFile`` start from it gives the next steps restored Adam moments
+    (see test_torch_train_cli.py) without a first CLI run."""
+    from yolodl_torch.cli import train_main as t_train
+    from yolodl_torch.config.app_config import TrainAppConfig
+    from yolodl_torch.graph import Graph
+    from yolodl_torch.train.checkpoint import save_checkpoint
+
+    config = TrainAppConfig.load(config_path)
+    graph = Graph.load_newslab_v1_json(
+        os.path.join(os.path.dirname(config_path), config.model_file))
+    config = t_train._resolve_auto_loss_options(config, graph)
+    model = YoloModel(graph, device="cpu", generator=torch.Generator().manual_seed(0))
+    t_cfg = t_loop.TrainConfig(lr=config.lr, optimizer=config.optimizer,
+                               momentum=config.momentum, weight_decay=config.weight_decay,
+                               loss=config.loss)
+    ts, opt = t_loop.train_init(model, t_cfg)
+    size = config.dataset.image_size
+    rng = np.random.default_rng(0)
+    batch = (rng.uniform(0, 1, (config.batch_size, 3, size, size)).astype(np.float32),
+             *random_targets(config.batch_size, 4, 0, num_classes=1))
+    ts, metrics = t_loop.make_train_step(model, opt, t_cfg)(ts, *map(torch.from_numpy, batch))
+    params, state = params_to_jax(model.state_dict())
+    return save_checkpoint(checkpoint_dir, ts.step, float(metrics["total_loss"]), params, state,
+                           t_loop.optimizer_state_tree(ts, t_cfg))

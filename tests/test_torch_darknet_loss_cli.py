@@ -151,5 +151,5 @@ def test_pipeline_parallel_needs_devices_the_port_lacks(tmp_path):
     assert "does not support pipeline_parallel" in rejection(tmp_path, j_train, ref)
     port = write_darknet_train_workspace(tmp_path / "port", device_config=devices,
                                          pipeline_parallel=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A14c"):
         run(t_train, port, "--max-steps", "1", "--device", "cpu")

@@ -146,6 +146,9 @@ def test_dataset_evaluator_matches_reference(workspace, monkeypatch):
 
 
 def test_evaluator_refuses_several_devices(workspace):
+    """Several replicas are ported (ROADMAP A14a;
+    test_torch_multi_device_infer.py): devices that do not divide the batch
+    are refused, as in the reference (evaluation.py:66-70)."""
     tm = workspace[4]
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        TEvaluator(tm, [], None, num_classes=80, devices=2)
+    with pytest.raises(ValueError, match="eval batch_size 4 not divisible by devices 3"):
+        TEvaluator(tm, [], None, num_classes=80, batch_size=4, devices=3)

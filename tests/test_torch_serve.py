@@ -155,8 +155,10 @@ def test_service_rejections(services, tmp_path):
     _, port_svc = services
     with pytest.raises(ValueError):
         port_svc.submit_u8(np.zeros((48, 64, 3), np.float32))
-    with pytest.raises(NotImplementedError, match="A14"):
-        DetectionService(port_svc.model, device="cpu", devices=2, **KW)
+    # several replicas (ROADMAP A14a): the batch must split evenly, as in
+    # the reference (its service.py:138-144); more: test_torch_multi_device_infer.py
+    with pytest.raises(ValueError, match="batch_size 4 not divisible by devices 3"):
+        DetectionService(port_svc.model, device="cpu", devices=3, **KW)
     # a plain (non-serving) artifact has no uint8 NHWC ingest to serve
     plain = export_inference(port_svc.model, str(tmp_path / "plain"), batch_size=4,
                              image_size=64)

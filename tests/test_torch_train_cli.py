@@ -84,11 +84,12 @@ def test_multi_scale_resize_matches_jax_image_resize(src, dst):
 
 @pytest.mark.parametrize("training,item", [
     ({"device_config": {"type": "MultiDevice", "devices": ["cuda:0", "cuda:1"]},
-      "pipeline_parallel": 2}, "ROADMAP A14"),
-    ({"device_config": {"type": "MultiDevice", "devices": ["cuda:0", "cuda:1"]}},
-     "ROADMAP A14"),
+      "pipeline_parallel": 2}, "ROADMAP A14c"),
+    # plain MultiDevice trains since A14a (test_torch_dp_cli.py); ZeRO-1 not
     ({"device_config": {"type": "MultiDevice", "devices": ["cuda:0", "cuda:1"]},
-      "tensor_parallel": 2}, "ROADMAP A14"),
+      "zero_optimizer": True}, "ROADMAP A14b"),
+    ({"device_config": {"type": "MultiDevice", "devices": ["cuda:0", "cuda:1"]},
+      "tensor_parallel": 2}, "ROADMAP A14b"),
 ])
 def test_unported_branches_name_their_item(tmp_path, training, item):
     config = write_workspace(tmp_path, **training)

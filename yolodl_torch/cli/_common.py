@@ -4,6 +4,8 @@ Counterpart of ``yolodl_tpu/cli/_common.py``: one definition of "config →
 live model" so the entry points cannot drift.  The port's model holds its
 own parameters, so :func:`build_model` returns ``(model, model_path)``;
 :func:`load_artifact` loads an exported program in its place.
+``--devices`` (:func:`devices_arg`, :func:`inference_devices`) gives one
+model replica per device, in one process (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -11,12 +13,25 @@ from __future__ import annotations
 import os
 
 
-def single_device(n_devices: int) -> None:
-    """The port runs each CLI on one card; more devices is A14's work."""
-    if n_devices > 1:
-        raise NotImplementedError(
-            f"{n_devices} devices: multi-device detect/eval/serve is not ported "
-            "to yolodl_torch yet (ROADMAP A14); run on one device")
+def devices_arg(text):
+    """``--devices``: a count (0 = the config's device list) or a
+    comma-separated list of devices (``cuda:0,cuda:0``: two replicas on one
+    card)."""
+    text = str(text).strip()
+    if text.lstrip("-").isdigit():
+        return int(text)
+    return [d.strip() for d in text.split(",") if d.strip()]
+
+
+def inference_devices(devices, config_devices: int, device):
+    """The replicas' devices (``parallel/mesh.py`` ``replica_devices``) for
+    ``--devices`` (``devices_arg``), the config's device count when it is 0,
+    on ``device``'s kind."""
+    from ..parallel.mesh import replica_devices
+
+    if isinstance(devices, list):
+        return replica_devices(devices)
+    return replica_devices(device, devices or config_devices)
 
 
 def load_artifact(path: str, image_size: int, device):

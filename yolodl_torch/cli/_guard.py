@@ -9,9 +9,12 @@ our config/dataset layers raise for user mistakes and printing
 ``error: ...``.  Unexpected exceptions still traceback, and
 ``YOLODL_DEBUG=1`` forces tracebacks for everything.
 
-Two more kinds of error are the user's to act on in the port: a part that
-is not ported yet (``NotImplementedError``, whose message names its ROADMAP
-item) and no card without ``--device cpu``.
+Three more kinds of error are the user's to act on in the port: a part
+that is not ported yet (``NotImplementedError``, whose message names its
+ROADMAP item), no card without ``--device cpu``, and a failed rank of a
+MultiDevice run (``RankFailed``).  A rank that ``parallel/mesh.py``
+``launch_ranks`` started hands its error line to the parent instead of
+printing it, so that the run prints one ``error:`` line.
 
 The reference's two JAX settings have no counterpart here: its persistent
 XLA compile cache (eager PyTorch compiles nothing; the CUDA kernels are
@@ -27,6 +30,7 @@ import os
 import sys
 
 from .._device import NoCudaDeviceError
+from ..parallel.mesh import RankFailed, write_rank_error
 
 # Exception types raised for user mistakes (bad paths, malformed JSON5/cfg,
 # wrong version, schema violations), for parts not ported yet and for a
@@ -43,6 +47,7 @@ _USER_ERRORS = (
     KeyError,
     NotImplementedError,
     NoCudaDeviceError,
+    RankFailed,
 )
 
 
@@ -69,7 +74,8 @@ def run(main) -> None:
             msg = f"missing config key {msg}"
         elif isinstance(e, FileNotFoundError):
             msg = f"file not found: {e.filename or msg}"
-        print(f"error: {msg}", file=sys.stderr)
+        if not write_rank_error(msg):
+            print(f"error: {msg}", file=sys.stderr)
         tb = e.__traceback__
         while tb is not None and tb.tb_next is not None:
             tb = tb.tb_next

@@ -13,8 +13,12 @@ each per batch.  ``--artifact`` runs an exported program (``tool_main
 export``, ``models/export.py``) in place of the model, with the
 reference's rejections: no ``--weights``/``--checkpoint``/``--devices``,
 no ``--precision`` and no multi-device config with it; its batch is the
-artifact's.  More than one device is not ported yet and raises, naming
-ROADMAP A14.
+artifact's.  ``--devices N`` (or the config's device list) runs one model
+replica per device in this process (``parallel/mesh.py`` ``ModelReplicas``,
+the reference's detect_main.py:144-160): each batch is split into N equal
+parts, each replica's forward and NMS issued in order, the outputs joined
+in order, so B1 launches once per replica per batch.  ``--devices`` also
+takes a device list (``cuda:0,cuda:0``).
 """
 
 from __future__ import annotations
@@ -29,9 +33,9 @@ def main(argv=None):
     parser.add_argument("--weights", default="", help="darknet .weights file")
     parser.add_argument("--checkpoint", default="", help="framework .ckpt file")
     parser.add_argument("--limit", type=int, default=0, help="max images (0 = all)")
-    parser.add_argument("--devices", type=int, default=0,
-                        help="shard inference batches over N devices (0 = the "
-                             "config's; more than 1 is not ported yet)")
+    parser.add_argument("--devices", default="0",
+                        help="split inference batches over N devices (0 = the "
+                             "config's), or a list: cuda:0,cuda:1")
     parser.add_argument("--save-json", default="",
                         help="also write COCO-format detections (original "
                              "pixel coordinates) to this file")
@@ -60,15 +64,19 @@ def main(argv=None):
     from ..loss import non_max_suppression, yolo_inference
     from ..loss.inference import to_host_detections
     from ..train.logging import draw_boxes_on_image
-    from ._common import build_model, load_artifact, nms_options, single_device
+    from ..parallel.mesh import ModelReplicas, join_outputs
+    from ._common import (build_model, devices_arg, inference_devices, load_artifact,
+                          nms_options)
 
     config = DetectAppConfig.load(args.config_file)
     base_dir = os.path.dirname(os.path.abspath(args.config_file))
     model_path = os.path.join(base_dir, config.model_file)
     compute_dtype = compute_dtype_of(args.precision)
     artifact_infer = None
+    replicas = None
+    devices = devices_arg(args.devices)
     if args.artifact:
-        if args.weights or args.checkpoint or args.devices:
+        if args.weights or args.checkpoint or devices:
             raise ValueError(
                 "--artifact bakes the weights in and fixes the device "
                 "program; --weights/--checkpoint/--devices do not apply")
@@ -86,11 +94,17 @@ def main(argv=None):
         artifact_nhwc = meta.get("data_format") == "NHWC"
         artifact_dtype = getattr(torch, meta["input_dtype"])
     else:
-        single_device(args.devices or config.n_devices)
-        device = resolve_device(args.device)
+        replica_devs = inference_devices(devices, config.n_devices, args.device)
+        device = replica_devs[0]
         model, model_path = build_model(
             config, base_dir, weights=args.weights, checkpoint=args.checkpoint,
             device=device)
+        if len(replica_devs) > 1:
+            if config.minibatch_size % len(replica_devs):
+                raise ValueError(
+                    f"minibatch_size {config.minibatch_size} not divisible by "
+                    f"devices {len(replica_devs)}")
+            replicas = ModelReplicas(model, replica_devs)
 
     dataset = SanitizedDataset(
         config.dataset.open(base_dir),
@@ -107,7 +121,10 @@ def main(argv=None):
     # cfg may be absent and greedy defaults apply)
     nms_kind, nms_beta = nms_options(config, model_path)
 
-    def forward(images: np.ndarray):
+    def forward(images: np.ndarray, replica: int = 0):
+        if replicas is not None:
+            x = torch.from_numpy(images).to(replicas.devices[replica])
+            return replicas.models[replica](x.to(compute_dtype))
         x = torch.from_numpy(images).to(device)
         if artifact_infer is None:
             return model(x.to(compute_dtype))
@@ -122,8 +139,13 @@ def main(argv=None):
         return artifact_infer(x)
 
     def infer(images: np.ndarray):
+        if replicas is not None:  # one part a replica, joined in order
+            return join_outputs(replicas.map(infer_part, images))
+        return infer_part(0, images)
+
+    def infer_part(replica: int, images: np.ndarray):
         with torch.inference_mode():
-            pred = forward(images)
+            pred = forward(images, replica)
             nms = non_max_suppression(
                 pred,
                 iou_threshold=config.nms_iou_thresh,

@@ -8,7 +8,9 @@ printed JSON line, plus ``--device`` (default ``cuda``).  Runs batch
 inference + NMS by class over the configured dataset and reports COCO
 101-point AP@0.5 and mAP@0.5:0.95 (``train/evaluation.py``).  On a card
 the NMS is B1's two kernels with one group per class, one launch of each
-per batch.
+per batch and replica: ``--devices N`` (or the config's device list, or a
+list such as ``cuda:0,cuda:1``) evaluates with one model replica per device
+in this process (``DatasetEvaluator(devices=…)``).
 """
 
 from __future__ import annotations
@@ -35,9 +37,9 @@ def main(argv=None):
                         help="include the 12-number COCO summary (AP by "
                              "object size, AR@1/10/100) with size buckets "
                              "in original-image pixel areas")
-    parser.add_argument("--devices", type=int, default=0,
+    parser.add_argument("--devices", default="0",
                         help="evaluation devices (0 = the config's device "
-                             "list, like detect; more than 1 is not ported yet)")
+                             "list, like detect), or a list: cuda:0,cuda:1")
     parser.add_argument("--precision", default="float32",
                         help="forward-pass compute dtype (float32/bfloat16, "
                              "same aliases as training.precision); bfloat16 "
@@ -47,17 +49,15 @@ def main(argv=None):
                         help="cuda (default; raises without a card) or cpu")
     args = parser.parse_args(argv)
 
-    from .._device import resolve_device
     from ..config.app_config import DetectAppConfig
     from ..data.cache import make_decode_loader
     from ..data.datasets import SanitizedDataset
     from ..train.evaluation import DatasetEvaluator
-    from ._common import build_model, nms_options, single_device
+    from ._common import build_model, devices_arg, inference_devices, nms_options
 
     config = DetectAppConfig.load(args.config_file)
-    devices = args.devices or config.n_devices
-    single_device(devices)
-    device = resolve_device(args.device)
+    devices = inference_devices(devices_arg(args.devices), config.n_devices, args.device)
+    device = devices[0]
     base_dir = os.path.dirname(os.path.abspath(args.config_file))
 
     model, model_path = build_model(

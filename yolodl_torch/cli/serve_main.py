@@ -13,7 +13,9 @@ line "serving on http://HOST:PORT" names it.  SIGINT ends the server with
 exit code 0.  ``--artifact`` serves an exported serving artifact
 (``tool_main export --serving``) through
 ``DetectionService.from_artifact``: no model build, batch and size from
-the artifact, the NMS live on B1's kernels.
+the artifact, the NMS live on B1's kernels.  ``--devices N`` (or a list
+such as ``cuda:0,cuda:1``) serves with one model replica per device in
+this process (``DetectionService(devices=…)``); an artifact serves on one.
 """
 
 from __future__ import annotations
@@ -36,8 +38,8 @@ def main(argv=None):
                         help="micro-batching window")
     parser.add_argument("--classes-file", default="",
                         help="one class name per line (overrides dataset)")
-    parser.add_argument("--devices", type=int, default=1,
-                        help="serving devices (more than 1 is not ported yet)")
+    parser.add_argument("--devices", default="1",
+                        help="serving devices: a count, or a list: cuda:0,cuda:1")
     parser.add_argument("--artifact", default="",
                         help="serve an exported serving artifact dir "
                              "(tool_main export --serving) — no model "
@@ -49,26 +51,27 @@ def main(argv=None):
     from .._device import resolve_device
     from ..config.app_config import DetectAppConfig
     from ..serve import DetectionService, make_http_server
-    from ._common import build_model, nms_options, single_device
+    from ._common import build_model, devices_arg, inference_devices, nms_options
 
     config = DetectAppConfig.load(args.config_file)
     base_dir = os.path.dirname(os.path.abspath(args.config_file))
     model_path = os.path.join(base_dir, config.model_file)
 
     weights = args.weights or config.weights_file
+    devices = devices_arg(args.devices)
     if args.artifact:
         if args.weights or args.checkpoint:
             raise ValueError(
                 "--artifact bakes the weights in; --weights/--checkpoint "
                 "do not apply")
-        if args.devices > 1:
+        if (len(devices) if isinstance(devices, list) else devices) > 1:
             raise SystemExit(
                 "--devices > 1 needs live-model serving: the exported "
                 "artifact is a single-device program")
         device = resolve_device(args.device)
     else:
-        single_device(max(args.devices, config.n_devices))
-        device = resolve_device(args.device)
+        devices = inference_devices(devices, 1, args.device)  # the flag's, as the reference
+        device = devices[0]
         model, model_path = build_model(
             config, base_dir, weights=weights, checkpoint=args.checkpoint,
             device=device)
@@ -111,6 +114,7 @@ def main(argv=None):
             nms_beta=nms_beta,
             class_names=class_names,
             device=device,
+            devices=devices,
         )
     print(f"compiling batch={service.batch_size} "
           f"size={service.image_size} ...", flush=True)

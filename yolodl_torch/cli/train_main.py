@@ -1,9 +1,9 @@
 """Training CLI: ``python -m yolodl_torch.cli.train_main --config-file train.json5``.
 
 Counterpart of ``yolodl_tpu/cli/train_main.py`` (the reference ``train``
-crate, train/src/main.rs) on one device, with its flags (``--config-file``,
-``--max-steps``, ``--profile-dir``) plus ``--device`` (default ``cuda``;
-``cpu`` runs on the CPU): load the versioned JSON5 config, create a
+crate, train/src/main.rs), with its flags (``--config-file``,
+``--max-steps``, ``--profile-dir``, ``--process-id``) plus ``--device``
+(default ``cuda``; ``cpu`` runs on the CPU): load the versioned JSON5 config, create a
 timestamped run dir with a config copy (:34-51), start the data pipeline
 and the logging worker, train, checkpoint every N steps with the optimizer
 state, abort on a non-finite loss (multi_gpu.rs:198-204), and on SIGINT or
@@ -28,8 +28,28 @@ jitter, warp and mix run batched on the training device.  As in the
 reference, a multi-step call (``steps_per_call``) or
 ``logging.enable_images`` keeps the CPU pipeline, with a warning.
 
+Data parallelism (``parallel/``), one process per rank:
+
+- ``device_config`` MultiDevice with N devices: this process starts N
+  ranks of itself (``parallel/mesh.py`` ``launch_ranks``, a rendezvous on
+  127.0.0.1 at a free port), rank i on the config's i-th device (every
+  rank on the CPU with ``--device cpu``), passes SIGINT and SIGTERM on to
+  them, and exits with the first failed rank's error line.
+- MultiProcess: this process is one rank, joined from the environment
+  (``env://``, as torchrun sets it) or from the config's ``coordinator`` +
+  ``num_processes`` and ``--process-id`` / ``YDL_PROCESS_ID``; its device
+  is ``cuda:LOCAL_RANK`` (or the CPU with ``--device cpu``).
+
+Each rank streams ``records[rank::N]`` with ``seed=rank`` and a local batch
+of ``batch_size / N`` (the reference's MultiProcess data, for MultiDevice
+too), trains through ``parallel/dp.py``'s step, and agrees with the others
+on the step to stop at (an all-reduce MAX of a stop flag each step).  Rank
+0 alone runs the in-training inference and evaluation and writes
+checkpoints; the others log into a ``-r{rank}`` run dir.
+
 Not ported, each raising ``NotImplementedError`` naming its ROADMAP item:
-several devices, MultiProcess, tensor/pipeline parallelism and ZeRO (A14).
+tensor parallelism and ZeRO-1 with several devices (A14b), pipeline
+parallelism (A14c).
 """
 
 from __future__ import annotations
@@ -99,21 +119,58 @@ def _resolve_auto_loss_options(config, graph):
 
 
 def _not_ported_parallelism(config) -> None:
-    """The reference's multi-device branches (train_main.py:103-127,
-    :422-489): ROADMAP A14."""
+    """The reference's branches for tensor parallelism and ZeRO-1
+    (yolodl_tpu/cli/train_main.py:412-436, :515-527: ROADMAP A14b) and for
+    pipeline parallelism (:482-513: A14c)."""
     what = None
-    if config.multi_process is not None:
-        what = "device_config MultiProcess"
-    elif config.n_devices > 1:
-        what = f"{config.n_devices} devices"
-    elif config.tensor_parallel > 1:
-        what = f"training.tensor_parallel {config.tensor_parallel}"
+    if config.tensor_parallel > 1:
+        what, item = f"training.tensor_parallel {config.tensor_parallel}", "A14b"
+    elif config.zero_optimizer and config.n_devices > 1:
+        what, item = f"training.zero_optimizer over {config.n_devices} devices", "A14b"
     elif config.pipeline_parallel > 1:
-        what = f"training.pipeline_parallel {config.pipeline_parallel}"
+        what, item = f"training.pipeline_parallel {config.pipeline_parallel}", "A14c"
     if what is not None:
         raise NotImplementedError(
-            f"{what}: multi-device training is not ported to yolodl_torch yet "
-            "(ROADMAP A14); train on one device")
+            f"{what}: not ported to yolodl_torch yet (ROADMAP {item}); "
+            "train data-parallel (MultiDevice or MultiProcess) instead")
+
+
+def _join_ranks(config, args):
+    """Join this process's data-parallel group: MultiProcess from the config
+    or the environment, a MultiDevice rank from the variables its parent
+    set.  → the rank's DataMesh."""
+    from ..config.app_config import training_devices
+    from ..parallel.mesh import init_process_group, parse_device, rank_environment
+
+    mp = config.multi_process
+    if mp is not None and mp.coordinator:
+        pid = args.process_id if args.process_id >= 0 else int(
+            os.environ.get("YDL_PROCESS_ID", "-1"))
+        if pid < 0:
+            raise SystemExit(
+                "MultiProcess with an explicit coordinator needs "
+                "--process-id (or YDL_PROCESS_ID)")
+        init = dict(init_method=f"tcp://{mp.coordinator}", rank=pid,
+                    world_size=mp.num_processes)
+        rank = pid
+    else:
+        env = rank_environment()
+        if env is None:
+            raise SystemExit(
+                "MultiProcess without a coordinator joins from the environment: "
+                "start the ranks with torchrun (RANK, WORLD_SIZE, MASTER_ADDR, "
+                "MASTER_PORT)")
+        init, rank = {}, env[0]
+    if mp is None:  # a MultiDevice rank: the config's rank-th device
+        devices = training_devices(args.config_file)
+        device = parse_device(devices[rank], args.device)
+    else:
+        import torch
+
+        device = torch.device(args.device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    return init_process_group(device, **init)
 
 
 def resize_images(images, size: int):
@@ -135,10 +192,12 @@ def main(argv=None):
                         help="write a torch.profiler trace of steps 5-10 "
                              "into this directory")
     parser.add_argument("--process-id", type=int, default=-1,
-                        help="a MultiProcess rank (not ported: ROADMAP A14)")
+                        help="this process's rank under MultiProcess with an "
+                             "explicit coordinator (else YDL_PROCESS_ID)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default; raises without a card) or cpu")
     args = parser.parse_args(argv)
+    argv = sys.argv[1:] if argv is None else list(argv)
 
     import numpy as np
     import torch
@@ -165,11 +224,58 @@ def main(argv=None):
     config = TrainAppConfig.load(args.config_file)
     base_dir = os.path.dirname(os.path.abspath(args.config_file))
     _not_ported_parallelism(config)
-    device = resolve_device(args.device)
 
-    # timestamped run dir + config copy (main.rs:34-51)
+    # data parallelism: a MultiDevice parent starts one rank per device and
+    # waits; a rank (MultiDevice or MultiProcess) joins its group before
+    # anything touches a device
+    from ..parallel.mesh import rank_environment
+
+    mesh = None
+    if config.multi_process is None and config.n_devices > 1 and rank_environment() is None:
+        from ..config.app_config import training_devices
+        from ..parallel.mesh import launch_ranks, parse_device
+
+        resolve_device(args.device)  # no card, no ranks
+        for d in map(parse_device, training_devices(args.config_file),
+                     [args.device] * config.n_devices):
+            if d.type == "cuda" and d.index >= torch.cuda.device_count():
+                raise ValueError(f"device_config lists {d}, but this machine has "
+                                 f"{torch.cuda.device_count()} card(s)")
+        print(f"dp: starting {config.n_devices} ranks", flush=True)
+        return launch_ranks([sys.executable, "-m", "yolodl_torch.cli.train_main", *argv],
+                            config.n_devices)
+    if config.multi_process is not None or config.n_devices > 1:
+        import dataclasses
+
+        mesh = _join_ranks(config, args)
+        if config.multi_process is None and mesh.world_size != config.n_devices:
+            raise SystemExit(
+                f"device_config lists {config.n_devices} devices but "
+                f"{mesh.world_size} ranks joined")
+        config = dataclasses.replace(config, n_devices=mesh.world_size)
+        if config.batch_size % (config.n_devices * config.accumulation_steps):
+            raise SystemExit(
+                f"training.batch_size ({config.batch_size}) must be "
+                f"divisible by global devices x accumulation_steps "
+                f"({config.n_devices} x {config.accumulation_steps})")
+        if config.multi_process is not None:
+            print(f"multi-process: rank {mesh.rank}/{mesh.world_size}, "
+                  f"1 local / {config.n_devices} global devices", flush=True)
+        if mesh.is_chief:
+            print(f"dp: {mesh.world_size} ranks, backend {mesh.backend} ({mesh.reason})",
+                  flush=True)
+        device = mesh.device
+    else:
+        device = resolve_device(args.device)
+    rank, world = (mesh.rank, mesh.world_size) if mesh is not None else (0, 1)
+    is_chief = rank == 0
+
+    # timestamped run dir + config copy (main.rs:34-51); other ranks get a
+    # rank-suffixed dir (no checkpoints land there, so FromRecent resume
+    # scans only ever find the chief's)
     stamp = time.strftime("%Y-%m-%d-%H-%M-%S")
-    run_dir = os.path.join(config.logging.dir, stamp)
+    rank_tag = f"-r{rank}" if rank else ""
+    run_dir = os.path.join(config.logging.dir, stamp + rank_tag)
     # the stamp has second resolution: two runs in the same second must not
     # share a dir (interleaved checkpoints would poison FromRecent resume)
     dedupe = 1
@@ -179,7 +285,7 @@ def main(argv=None):
             break
         except FileExistsError:
             dedupe += 1
-            run_dir = os.path.join(config.logging.dir, f"{stamp}.{dedupe}")
+            run_dir = os.path.join(config.logging.dir, f"{stamp}.{dedupe}{rank_tag}")
     shutil.copy(args.config_file, os.path.join(run_dir, "train.json5"))
     ckpt_dir = os.path.join(run_dir, "checkpoints")
 
@@ -262,20 +368,36 @@ def main(argv=None):
     elif pre.cache_method == "tfrecord":
         from ..data.tfrecord_cache import TfrecordCache
 
-        loader = TfrecordCache(cache_dir or os.path.join(run_dir, "cache"), (size, size))
+        # a shard file per rank: appends to one file are not safe across
+        # processes, and the ranks' records are disjoint anyway
+        loader = TfrecordCache(cache_dir or os.path.join(run_dir, "cache"), (size, size),
+                               shard_tag=f"-r{rank}" if world > 1 else "")
     elif pre.cache_method == "memory":
         loader = MemoryCache((size, size))
     else:
         loader = make_decode_loader((size, size))
+    # several ranks: each streams its strided share of the records and
+    # makes its local slice of the global batch
     records = dataset.records()
+    local_batch = config.batch_size
+    if world > 1:
+        if len(records) <= rank:
+            raise ValueError(f"rank {rank} of {world} gets no records: the dataset holds "
+                             f"{len(records)}")
+        records = records[rank::world]
+        local_batch = config.batch_size // world
     # preprocessor.pipeline.device "cuda" ("tpu" in the config's own words):
     # defer the pixel augmentation to the batched device program
-    # (data/device_augment.py).  A multi-step call stacks HOST arrays, and
-    # the debug images need the host's per-stage pixels, so both keep the
-    # CPU pipeline, with the reference's warnings.
+    # (data/device_augment.py).  A multi-step call stacks HOST arrays, the
+    # debug images need the host's per-stage pixels, and a MultiProcess rank
+    # keeps the reference's host pipeline, so these keep the CPU pipeline,
+    # with the reference's warnings; a MultiDevice rank augments on its card.
     defer_images = False
     if pre.pipeline_device == "tpu":
-        if config.steps_per_call > 1 and not config.multi_scale_sizes:
+        eff_scan = (config.steps_per_call
+                    if config.steps_per_call > 1 and world == 1
+                    and not config.multi_scale_sizes else 1)
+        if eff_scan > 1 or (config.multi_process is not None and world > 1):
             print("warning: preprocessor.pipeline.device='tpu' requires "
                   "single-process, non-scanned training; using the CPU "
                   "pipeline", file=sys.stderr)
@@ -286,9 +408,9 @@ def main(argv=None):
         else:
             defer_images = True
     stream_cfg = TrainingStreamConfig(
-        batch_size=config.batch_size,
+        batch_size=local_batch,
         defer_images=defer_images,
-        seed=0,
+        seed=rank,  # decorrelate the ranks' augmentation streams
         mosaic_prob=pre.mosaic_prob,
         mixup_prob=pre.mixup_prob,
         cutmix_prob=pre.cutmix_prob,
@@ -340,8 +462,8 @@ def main(argv=None):
     darknet_loss_spec = None
     dk_heads = []
     if config.loss_impl == "darknet":
-        # (the reference also rejects pipeline_parallel here; it needs
-        # several devices, which stop at _not_ported_parallelism first)
+        # (the reference also rejects pipeline_parallel here, which stops
+        # at _not_ported_parallelism first)
         if config.model_kind != "darknet":
             raise SystemExit(
                 "training.loss.impl Darknet needs a darknet model cfg")
@@ -385,7 +507,7 @@ def main(argv=None):
         debug_stat=config.logging.enable_debug_stat,
         compute_dtype={"float32": None}.get(config.precision, config.precision),
     )
-    if config.zero_optimizer:
+    if config.zero_optimizer and config.n_devices <= 1:
         print("zero_optimizer requires a MultiDevice config; ignoring "
               "(optimizer-state sharding is a no-op on one device)")
     ts, optimizer = train_init(model, train_cfg)
@@ -429,12 +551,24 @@ def main(argv=None):
     # exact-resume data order: a FromRecent restore continues THIS run's
     # data stream (per-slot RNG keys make the skip bitwise-faithful)
     if restored is not None and config.checkpoint.mode == "from_recent":
-        stream_cfg.start_records = int(restored[3]["step"]) * config.batch_size
+        stream_cfg.start_records = int(restored[3]["step"]) * local_batch
         if stream_cfg.start_records:
             print(f"data stream resumed at record {stream_cfg.start_records}")
 
     accum = config.accumulation_steps
-    step_fn = make_train_step(model, optimizer, train_cfg, accum=accum)
+    if mesh is not None:
+        from ..parallel.dp import (make_dp_train_step, replicate_state,
+                                   shard_batch_multiprocess)
+
+        # every rank starts from rank 0's state (restored or drawn)
+        ts = replicate_state(mesh, ts)
+
+    def train_step(cfg):
+        if mesh is not None:
+            return make_dp_train_step(model, optimizer, cfg, mesh, accum=accum)
+        return make_train_step(model, optimizer, cfg, accum=accum)
+
+    step_fn = train_step(train_cfg)
 
     # multi_scale × darknet-exact loss: the head params bind net_w/net_h
     # (darknet's resize_network updates them per random=1 resize, and
@@ -452,8 +586,7 @@ def main(argv=None):
             from ..loss.darknet_loss import head_params_from_darknet as _hp
 
             spec = (darknet_loss_spec[0], tuple(_hp(l, size, size) for l in dk_heads))
-            fn = dk_steps[size] = make_train_step(
-                model, optimizer, _dc.replace(train_cfg, darknet_loss=spec), accum=accum)
+            fn = dk_steps[size] = train_step(_dc.replace(train_cfg, darknet_loss=spec))
         return fn
 
     logger = LoggingWorker(run_dir).start()
@@ -471,7 +604,7 @@ def main(argv=None):
         nms_kind, nms_beta = nms_options_from_darknet(dk.Darknet.load(model_path))
 
     infer_one = None
-    if config.logging.enable_inference:
+    if config.logging.enable_inference and is_chief:
         from ..loss import non_max_suppression, to_host_detections, yolo_inference
         from ..train.logging import draw_boxes_on_image as _draw
 
@@ -513,7 +646,7 @@ def main(argv=None):
 
     # periodic in-training validation (evaluation.interval)
     evaluator = None
-    if config.eval_interval:
+    if config.eval_interval and is_chief:
         from ..train.evaluation import DatasetEvaluator
 
         ev_cfg = config.eval_dataset or config.dataset
@@ -558,9 +691,9 @@ def main(argv=None):
         return resize_images(images, target)
 
     # multi-step calls (training.steps_per_call): K optimizer steps per call
-    # on K stacked batches; incompatible with multi-scale
+    # on K stacked batches; incompatible with multi-scale and several ranks
     scan_k = config.steps_per_call
-    if scan_k > 1 and ms_sizes:
+    if scan_k > 1 and (world > 1 or ms_sizes):
         print("steps_per_call > 1 requires single-device, fixed-size "
               "training; falling back to per-step dispatch")
         scan_k = 1
@@ -591,8 +724,15 @@ def main(argv=None):
     best_eval = {"map": -1.0}
 
     def save_checkpoint(step, total):
+        if not is_chief:  # the state is replicated: rank 0 writes it
+            return
         params, state, opt, ema = host_trees()
         saver.save(ckpt_dir, step, total, params, state, opt, ema_params=ema)
+
+    def stop_requested():
+        """A signal on this rank, agreed over the ranks."""
+        here = stop_signal["num"] is not None
+        return mesh.agree(here) if mesh is not None else here
 
     def handle_step(step, metrics, index=None, final=True, window=1):
         """Per-optimizer-step host work: finite check, TB logging, rates,
@@ -694,12 +834,16 @@ def main(argv=None):
             if not saved:
                 save_checkpoint(step, total)
             return True
-        if stop_signal["num"] is not None:
+        if stop_requested():
             if not saved:
                 save_checkpoint(step, total)
             saver.flush()  # raises if the write failed — do not lie below
-            print(f"received signal {stop_signal['num']} — checkpoint saved "
-                  f"at step {step}, exiting")
+            cause = (f"received signal {stop_signal['num']}" if stop_signal["num"] is not None
+                     else "another rank received a signal")
+            if is_chief:
+                print(f"{cause} — checkpoint saved at step {step}, exiting")
+            else:
+                print(f"{cause} — stopping at step {step} (rank 0 saves the checkpoint)")
             return True
         return False
 
@@ -736,7 +880,7 @@ def main(argv=None):
                     profiler.stop()
                     os.makedirs(args.profile_dir, exist_ok=True)
                     profiler.export_chrome_trace(
-                        os.path.join(args.profile_dir, "trace.json"))
+                        os.path.join(args.profile_dir, f"trace{rank_tag}.json"))
                     profiler, profiled = None, True
                     print(f"wrote device trace to {args.profile_dir}")
             if scan_k > 1:
@@ -764,6 +908,9 @@ def main(argv=None):
                     break
                 continue
             images, gt_boxes, gt_classes, gt_mask = arrays
+            if mesh is not None:  # each rank's local rows, as they are
+                images, gt_boxes, gt_classes, gt_mask = shard_batch_multiprocess(
+                    mesh, (images, gt_boxes, gt_classes, gt_mask))
             images = maybe_rescale(images, host_step)
             last_batch["images"] = record.images
             last_batch["gt"] = (record.boxes, record.mask)
@@ -778,6 +925,10 @@ def main(argv=None):
             profiler.stop()
         saver.flush()
         logger.close()
+        if mesh is not None:
+            from ..parallel.mesh import destroy_process_group
+
+            destroy_process_group()
 
 
 def _host(image):

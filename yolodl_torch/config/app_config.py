@@ -15,8 +15,10 @@ Counterpart of ``yolodl_tpu/config/app_config.py``: the same dataclasses,
 fields, defaults, parsers and error messages.  JSON5 is read by
 :mod:`yolodl_torch.config.json5_reader`; the loss, matcher and schedule
 configs are the port's own; :func:`compute_dtype_of` gives a torch dtype.
-The port runs on one card: the CLIs refuse more than one device (ROADMAP
-A14).
+A MultiDevice config trains one rank per listed device and a MultiProcess
+config joins ranks started elsewhere (``parallel/mesh.py``); the device
+list itself is read by :func:`training_devices`.  Tensor parallelism and
+ZeRO-1 are not ported (ROADMAP A14b), nor the pipeline model (A14c).
 """
 
 from __future__ import annotations
@@ -559,6 +561,20 @@ class MultiProcessConfig:
 
     coordinator: str = ""
     num_processes: int = 0
+
+
+def training_devices(path) -> list:
+    """``training.device_config``'s device entries as written (MultiDevice
+    ``devices``; SingleDevice's ``device`` as a list of one).  The loaded
+    config keeps only their count, as the reference's does."""
+    with open(path, encoding="utf-8") as f:
+        raw = json5_reader.load(f)
+    device_cfg = (raw.get("training") or {}).get("device_config") or {}
+    if device_cfg.get("devices"):
+        return list(device_cfg["devices"])
+    if device_cfg.get("minibatch_sizes"):  # NonUniformMultiDevice by index
+        return list(range(len(device_cfg["minibatch_sizes"])))
+    return [device_cfg.get("device", "cuda:0")]
 
 
 @dataclasses.dataclass(frozen=True)

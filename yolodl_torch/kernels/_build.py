@@ -6,7 +6,10 @@ includes PyTorch's headers, so a build takes seconds.  Libraries go to
 ``build/yolodl_torch/`` at the repository root, named by a hash of the
 source, of every header under ``csrc/`` (a source may include any of them)
 and of the flags, so an edited source or header is rebuilt and an unchanged
-one is loaded as it is.  A failed build raises; nothing falls back.
+one is loaded as it is.  A failed build raises; nothing falls back.  A
+file lock in the build directory keeps two processes (the ranks of a
+data-parallel run) from building one library at once: the second waits
+and loads what the first built.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` so that nvcc never
 contracts a product and a sum into one FMA — the kernels round every
@@ -15,7 +18,9 @@ operation as their plain PyTorch versions do.  Never ``--use_fast_math``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -101,11 +106,23 @@ def _finish_build(name: str, started) -> None:
     os.replace(tmp, final)  # atomic: a concurrent loader sees all or nothing
 
 
+@contextlib.contextmanager
+def _file_lock():
+    """Held across processes while libraries are built."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all() -> float:
     """Build every kernel library, one nvcc per source, all started together.
     Returns the seconds taken."""
     t0 = time.perf_counter()
-    with _lock:
+    with _lock, _file_lock():
         started = {n: _start_build(n) for n in SOURCES}
         for name, s in started.items():
             if s is not None:
@@ -119,9 +136,11 @@ def load(name: str) -> ctypes.CDLL:
         lib = _loaded.get(name)
         if lib is not None:
             return lib
-        started = _start_build(name)
-        if started is not None:
-            _finish_build(name, started)
+        if not library_path(name).exists():
+            with _file_lock():
+                started = _start_build(name)
+                if started is not None:
+                    _finish_build(name, started)
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
         return lib

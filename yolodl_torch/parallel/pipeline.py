@@ -5,7 +5,7 @@ Counterpart of the planning half of ``yolodl_tpu/parallel/pipeline.py``
 it cuts a model graph's topological order into contiguous stages where few
 plain tensors cross, balancing a per-node FLOP estimate.  ``tool_main info
 --pipeline-stages`` prints its plan.  The pipeline model that runs the
-stages on several devices is ROADMAP A14.
+stages on several devices is ROADMAP A14c.
 """
 
 from __future__ import annotations

@@ -18,6 +18,15 @@ kernels (``kernels/iou.py``).  :meth:`DetectionService.from_artifact`
 serves an exported serving artifact (``models/export.py``) in place of the
 model: its program holds the same ingest, and the NMS stays live.
 
+``devices=N`` serves data-parallel in this one process, as the reference's
+``devices`` (service.py:134-146) does over a mesh: one model replica per
+device (``parallel/mesh.py`` ``ModelReplicas``), the batch split into N
+equal parts, each replica's upload, forward and NMS issued in order from
+the dispatcher thread so that the devices overlap, and the parts' outputs
+joined in order on the host.  So B1's kernels launch once per replica per
+batch.  A list of devices names each replica's device (two may share a
+card).
+
 Coordinates are mapped back to original-image pixels with the inverse
 letterbox transform (detect/src/main.rs:169 Transform::from_sizes_letterbox).
 """
@@ -35,7 +44,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from ..parallel.mesh import ModelReplicas, device_guard, join_outputs, replica_devices
 from ..data.letterbox import (letterbox_geometry, letterbox_u8, letterbox_u8_pil,
                               letterbox_unit_transform)
 from ..loss import non_max_suppression, to_host_detections, yolo_inference
@@ -119,7 +128,10 @@ class DetectionService:
     loaded serving artifact) takes its place, as the reference's
     ``forward_fn`` does; ``window_ms`` bounds how long the dispatcher waits
     to fill a batch.  ``device`` defaults to ``"cuda"`` and raises without a
-    card.
+    card.  ``devices`` is the number of replicas (on ``device``: n CPU
+    replicas, or the cards from ``cuda:0``) or a list of their devices;
+    ``batch_size`` must divide evenly over them, and an artifact
+    (``forward_fn``) serves on one.
     """
 
     def __init__(
@@ -139,18 +151,29 @@ class DetectionService:
         device="cuda",
         forward_fn=None,
     ):
-        if devices != 1:
-            raise NotImplementedError(
-                "multi-device serving is not ported yet (ROADMAP A14)")
-        self.device = resolve_device(device)
+        n_devices = len(devices) if isinstance(devices, (list, tuple)) else int(devices)
+        if n_devices > 1:
+            if forward_fn is not None:
+                raise ValueError(
+                    "artifact serving is single-device (the exported program "
+                    "is one device's); use live-model serving for devices > 1")
+            if batch_size % n_devices:
+                raise ValueError(
+                    f"batch_size {batch_size} not divisible by devices {n_devices}")
         if (model is None) == (forward_fn is None):
             raise ValueError("give DetectionService a model or a forward_fn, not both")
+        if isinstance(devices, (list, tuple)):
+            self.devices = replica_devices(list(devices))
+        else:
+            self.devices = replica_devices(device, n_devices)
+        self.device = self.devices[0]
         params = list(model.parameters()) if model is not None else []
         if params and params[0].device.type != self.device.type:
             raise ValueError(
                 f"model lives on {params[0].device}, service on {self.device}")
         self.model = model
         self._forward_fn = forward_fn
+        self._replicas = ModelReplicas(model, self.devices) if model is not None else None
         self.image_size = int(image_size)
         self.batch_size = int(batch_size)
         self.window_s = window_ms / 1e3
@@ -164,15 +187,16 @@ class DetectionService:
         self._inflight: "queue.Queue" = queue.Queue(maxsize=2)
         self._stop = threading.Event()
 
-        # on a card: two pinned upload buffers, alternated; each is refilled
-        # only after the upload that last read it has finished (its event)
-        self._host_bufs = []
+        # on a card: two pinned upload buffers a replica, alternated; each is
+        # refilled only after the upload that last read it has finished
+        n = len(self.devices) if self._replicas is not None else 1
+        self._host_bufs = [[] for _ in range(n)]
         if self.device.type == "cuda":
-            shape = (self.batch_size, self.image_size, self.image_size, 3)
-            self._host_bufs = [torch.empty(shape, dtype=torch.uint8, pin_memory=True)
-                               for _ in range(2)]
-        self._upload_done = [None, None]
-        self._next_buf = 0
+            shape = (self.batch_size // n, self.image_size, self.image_size, 3)
+            self._host_bufs = [[torch.empty(shape, dtype=torch.uint8, pin_memory=True)
+                                for _ in range(2)] for _ in range(n)]
+        self._upload_done = [[None, None] for _ in range(n)]
+        self._next_buf = [0] * n
 
         self._thread = threading.Thread(
             target=self._dispatch_loop, name="detection-dispatcher", daemon=True)
@@ -213,28 +237,29 @@ class DetectionService:
 
     # -- device program ----------------------------------------------------
 
-    def _upload(self, stacked: np.ndarray) -> torch.Tensor:
-        """u8 NHWC host batch → device tensor (pinned, non_blocking)."""
-        if self.device.type == "cpu":
+    def _upload(self, stacked: np.ndarray, replica: int = 0) -> torch.Tensor:
+        """u8 NHWC host rows → the replica's device (pinned, non_blocking)."""
+        device = self.devices[replica]
+        if device.type == "cpu":
             return torch.from_numpy(stacked)
-        i = self._next_buf
-        self._next_buf = 1 - i
-        if self._upload_done[i] is not None:
-            self._upload_done[i].synchronize()
-        buf = self._host_bufs[i]
+        i = self._next_buf[replica]
+        self._next_buf[replica] = 1 - i
+        done = self._upload_done[replica]
+        if done[i] is not None:
+            done[i].synchronize()
+        buf = self._host_bufs[replica][i]
         buf.numpy()[...] = stacked
-        dev = buf.to(self.device, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        self._upload_done[i] = done
+        dev = buf.to(device, non_blocking=True)
+        done[i] = torch.cuda.Event()
+        done[i].record()
         return dev
 
-    def forward(self, images_u8: torch.Tensor):
-        """u8 NHWC device batch → MergedDetection."""
+    def forward(self, images_u8: torch.Tensor, replica: int = 0):
+        """u8 NHWC device batch → MergedDetection (on ``replica``'s model)."""
         if self._forward_fn is not None:
             return self._forward_fn(images_u8)
         x = images_u8.to(COMPUTE_DTYPE) / 255.0
-        return self.model(x, data_format="NHWC")
+        return self._replicas.models[replica](x, data_format="NHWC")
 
     def postprocess(self, pred):
         nms = non_max_suppression(
@@ -248,26 +273,39 @@ class DetectionService:
         )
         return yolo_inference(nms, pred.num_flats)
 
-    def _run(self, stacked: np.ndarray):
+    def _run(self, stacked: np.ndarray) -> list:
+        """[B, S, S, 3] u8 host batch → the outputs of each replica's rows,
+        in order, each still on its device."""
         with torch.inference_mode():
-            return self.postprocess(self.forward(self._upload(stacked)))
+            if self._replicas is None or len(self._replicas) == 1:
+                return [self.postprocess(self.forward(self._upload(stacked)))]
+            return self._replicas.map(
+                lambda i, part: self.postprocess(
+                    self.forward(self._upload(part, i), replica=i)),
+                stacked)
 
-    def _download(self, out):
-        """(host copy of ``out``, event after the copies; None on the CPU).
+    def _download(self, outs: list):
+        """(host copies of the replicas' ``outs``, events after the copies;
+        None on the CPU).
 
-        The copies to pinned host memory are queued right behind the
-        batch's own device work.  A blocking copy made later by the
-        completer would wait on this stream for every kernel the dispatcher
+        The copies to pinned host memory are queued right behind each
+        replica's own device work.  A blocking copy made later by the
+        completer would wait on the stream for every kernel the dispatcher
         has queued since, the next batch's forward included."""
-        if self.device.type != "cuda":
-            return out, None
+        hosts, events = [], []
         with torch.inference_mode():
-            host = dataclasses.replace(out, **{
-                f.name: getattr(out, f.name).to("cpu", non_blocking=True)
-                for f in dataclasses.fields(out)})
-            done = torch.cuda.Event()
-            done.record()
-        return host, done
+            for out in outs:
+                if out.valid.device.type != "cuda":
+                    hosts.append(out)
+                    continue
+                with device_guard(out.valid.device):
+                    hosts.append(dataclasses.replace(out, **{
+                        f.name: getattr(out, f.name).to("cpu", non_blocking=True)
+                        for f in dataclasses.fields(out)}))
+                    done = torch.cuda.Event()
+                    done.record()
+                    events.append(done)
+        return hosts, events or None
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -276,8 +314,8 @@ class DetectionService:
         t0 = time.perf_counter()
         dummy = np.zeros(
             (self.batch_size, self.image_size, self.image_size, 3), np.uint8)
-        out = self._run(dummy)
-        out.valid.cpu()  # value readout = completion fence
+        for out in self._run(dummy):
+            out.valid.cpu()  # value readout = completion fence
         return time.perf_counter() - t0
 
     def start(self) -> None:
@@ -439,11 +477,11 @@ class DetectionService:
                 continue
             if item is None:
                 return
-            batch, out, done = item
+            batch, outs, done = item
             try:
-                if done is not None:
-                    done.synchronize()
-                dets = to_host_detections(out)
+                for event in done or ():
+                    event.synchronize()
+                dets = to_host_detections(join_outputs(outs))
                 with self.stats._lock:
                     self.stats.batches += 1
                     self.stats.batch_fill_sum += len(batch)

@@ -11,6 +11,14 @@ The model is evaluated as it stands: the port keeps parameters in the
 module and updates them in place, so a call after a training step sees the
 new weights.  On a card, suppression is B1's two kernels
 (``kernels/iou.py``) with one group per class: two launches per batch.
+
+``devices=N`` evaluates data-parallel in this one process, as the
+reference's ``devices`` (evaluation.py:64-75) does over a mesh: one model
+replica per device (``parallel/mesh.py`` ``ModelReplicas``, refreshed from
+the model at each call), each batch split into N equal parts, each
+replica's forward and NMS issued in order from this thread so that the
+devices overlap, and the outputs joined in order on the host: two
+launches per replica per batch.  A list of devices names each replica's.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from ..loss import non_max_suppression, yolo_inference
 from ..loss.average_precision import (
     Detection, GroundTruth, ap_at_thresholds, coco_summary,
 )
+from ..parallel.mesh import ModelReplicas, join_outputs, replica_devices
 
 
 class DatasetEvaluator:
@@ -46,9 +55,6 @@ class DatasetEvaluator:
         extended: bool = False,
         precision: str = "float32",
     ):
-        if devices > 1:
-            raise NotImplementedError(
-                "multi-device evaluation is not ported yet (ROADMAP A14)")
         #: also compute the 12-number COCO summary (AP by size, AR@k) with
         #: size buckets in ORIGINAL-image pixel areas (requires records to
         #: carry .height/.width, as FileRecord does)
@@ -58,6 +64,18 @@ class DatasetEvaluator:
         self.loader = loader
         self.batch_size = max(1, int(batch_size))
         self.num_classes = num_classes
+        self._replicas = None
+        n_devices = len(devices) if isinstance(devices, (list, tuple)) else int(devices)
+        if n_devices > 1:
+            if self.batch_size % n_devices:
+                raise ValueError(
+                    f"eval batch_size {self.batch_size} not divisible by "
+                    f"devices {n_devices}")
+            if isinstance(devices, (list, tuple)):
+                devs = replica_devices(list(devices))
+            else:
+                devs = replica_devices(next(model.parameters()).device.type, n_devices)
+            self._replicas = ModelReplicas(model, devs)
         self.cache_bytes = cache_bytes
         self.iou_threshold = iou_threshold
         self.confidence_threshold = confidence_threshold
@@ -89,12 +107,19 @@ class DatasetEvaluator:
             self._decoded = kept
 
     def infer(self, images: np.ndarray):
-        """[B,3,S,S] f32 host batch → YoloInferenceOutput on the model's
-        device: forward, NMS with one group per class, class selection."""
-        device = next(self.model.parameters()).device
+        """[B,3,S,S] f32 host batch → YoloInferenceOutput: forward, NMS with
+        one group per class, class selection; on the model's device, or,
+        with several replicas, joined on the host."""
+        if self._replicas is None:
+            return self._infer(self.model, images)
+        return join_outputs(self._replicas.map(
+            lambda i, part: self._infer(self._replicas.models[i], part), images))
+
+    def _infer(self, model, images: np.ndarray):
+        device = next(model.parameters()).device
         with torch.inference_mode():
             x = torch.from_numpy(images).to(device).to(self.compute_dtype)
-            pred = self.model(x)
+            pred = model(x)
             nms = non_max_suppression(
                 pred,
                 iou_threshold=self.iou_threshold,
@@ -107,6 +132,8 @@ class DatasetEvaluator:
             return yolo_inference(nms, pred.num_flats)
 
     def __call__(self) -> Dict:
+        if self._replicas is not None:
+            self._replicas.refresh()
         dets, gts = [], []
         bs = self.batch_size
         it = self._iter_decoded()

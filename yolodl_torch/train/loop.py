@@ -325,6 +325,7 @@ def make_train_step(
     config: TrainConfig,
     data_format: str = "NCHW",
     accum: int = 1,
+    reduce: Optional[Callable] = None,
 ) -> Callable:
     """The train step: (TrainState, images, gt_boxes, gt_classes, gt_mask)
     → (TrainState, metrics).
@@ -334,6 +335,11 @@ def make_train_step(
     (per micro-batch, see :func:`make_batch_grads`) → clip → optimizer step
     at the scheduled lr → ``clamp_running_vars`` → step += 1 → EMA.  The
     state is updated in place and returned; the metrics are device tensors.
+
+    ``reduce`` (metrics → metrics) runs right after the backward, before
+    everything that reads the gradients: the data-parallel step
+    (``parallel/dp.py``) averages the gradients, the BN statistics and the
+    metrics over the ranks there.
     """
     batch_grads = make_batch_grads(model, config, data_format, accum)
     schedule = make_schedule_fn(config.lr)
@@ -342,6 +348,8 @@ def make_train_step(
     def step(ts: TrainState, images, gt_boxes, gt_classes, gt_mask):
         optimizer.zero_grad(set_to_none=False)
         metrics = batch_grads(images, gt_boxes, gt_classes, gt_mask)
+        if reduce is not None:
+            metrics = reduce(metrics)
         if config.log_weights_and_grads:  # the gradients before clipping
             grad_maxima = _maxima("grads_max", (
                 (key, p.grad) for key, p in model.named_parameters()))
