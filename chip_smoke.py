@@ -264,7 +264,42 @@ result line:
    kernel launched once per replica per served batch; the two replicas'
    detections equal to the b4 replica's (the same forward shape), and
    the share equal to the b8 replica's is printed.
-13. card  — `nvidia-smi --query-gpu=name,power.limit` as it prints it.
+13. tp    — ZeRO-1 and tensor parallelism (ROADMAP A14b,
+   yolodl_torch/parallel/zero.py and tp.py).  First make_zero_train_step
+   at world size 1 over NCCL: the flagship at 608², b16, bf16, default
+   TrainConfig(), phase train's batch, 2 steps against the plain step
+   (cuDNN deterministic): losses within rel 1e-5, parameters within 1e-6
+   and BN statistics within 1e-6 (tests/test_train.py:405-411), max|Δ|
+   printed.  Then 2 ranks on cuda:0 over gloo (launch_ranks): ZeRO-1 on
+   the flagship b16 as 8 rows a rank, the reduce-scatter route the backend
+   rule chose, one warm-up and 3 timed steps (CUDA events), the ms of the
+   reduce-scatter and of the all-gather, the optimizer-state bytes per
+   rank beside the data-parallel step's, the two ranks' parameters
+   bit-identical (sha256) and their 4 losses equal to the data-parallel
+   step's on the same rows (rel 1e-5).  In the same ranks, tensor
+   parallelism 1×2: rank 0 first takes one f32 SGD step (momentum 0.937)
+   of the flagship at 608² on a global batch of 2 alone; the 1×2 step on
+   the same batch must give its loss within rel 1e-4, and every
+   parameter, BN statistic and gradient (the momentum buffer after one
+   step) within 1e-4 · max|ref| or within 10 times the largest difference
+   that the same single-process step shows on images 1 ulp up (rounding
+   alone: one f32 step at 608² amplifies it in some gradients, up to
+   0.3 % of max); the sharded-leaf count, and parameter + moment bytes
+   per rank beside the single process's; one warm-up and 2 timed bf16
+   steps (default TrainConfig()) with the host-staged collectives' count
+   and ms per step; make_tp_infer in f32 against the unsharded forward of
+   the gathered model (1e-4 · max|ref|), then NMS on rank 0 with B1's
+   counters zeroed before and read after (one launch of each).  Last,
+   train_main on a toy NEWSLAB workspace under build/chip_smoke_tp/
+   (removed at the end) with MultiDevice [cuda:0, cuda:0] and
+   tensor_parallel 2, then zero_optimizer: its ranks started by
+   launch_ranks, as train_main's own parent starts them, so that each
+   rank reports B1's counters; 3 steps with an evaluation at step 3: the
+   mesh (or reduce-scatter) line, a checkpoint a step from rank 0 and none
+   from rank 1, the last loading into a single-device port model whose
+   forward is finite, and each B1 kernel launched once per evaluated
+   batch on rank 0.
+14. card  — `nvidia-smi --query-gpu=name,power.limit` as it prints it.
 
 The line before the last lists the kernels; the last line is
 {"ok": true, "device": {...}}.  TF32 is switched off for every f32
@@ -374,6 +409,16 @@ DP_TIMEOUT = 600              # seconds for the ranks and the train_main run
 A4_MODELS = (("yolov2", 128), ("cspx-p7-mish", 128))  # card vs CPU; p7's stride is 128
 YOLOV2_CFG = os.path.join(REPO, "cfg", "darknet", "yolov2.cfg")
 YOLOV2_SIZE = 416            # yolov2.cfg's own input size
+TP_ROOT = os.path.join(REPO, "build", "chip_smoke_tp")  # removed at the end
+TP_ZERO_STEPS = 2             # world size 1: ZeRO-1 steps held against the plain step
+TP_RANK_TIMED = 3             # 2 ranks: ZeRO-1 (and DP) steps timed after one warm-up step
+TP_BATCH = 2                  # TP 1x2: the global batch of the f32 check and the bf16 steps
+TP_TIMED = 2                  # TP 1x2: bf16 steps timed after one warm-up step
+TP_F32_TOL = 1e-4             # TP 1x2 vs one process, f32: max|d| / max|ref| per tensor
+TP_CONTROL_FACTOR = 10        # ... or 10x one process's own difference on images 1 ulp up
+TP_TRAIN_MAIN_STEPS = 3       # train_main: 3 steps, an evaluation at step 3
+TP_EVAL_BATCH = 4             # ... of dp_workspace's 8 images: 2 evaluation batches
+TP_TIMEOUT = 900              # seconds for the ranks of each run
 CLASSIFY_ROOT = os.path.join(REPO, "build", "chip_smoke_classify")  # removed at the end
 VGG_CFG = os.path.join(REPO, "cfg", "darknet", "vgg-16.cfg")
 LSTM_CFG = os.path.join(REPO, "cfg", "darknet", "lstm.train.cfg")
@@ -3856,6 +3901,416 @@ def phase_dp(iou) -> dict:
             "dp_serve_one_replica": serve["one_replica"]["launches"]}
 
 
+def zero_world_one(darknet) -> dict:
+    """make_zero_train_step at world size 1 over NCCL against the plain
+    step: TP_ZERO_STEPS steps of the flagship, cuDNN deterministic."""
+    from yolodl_torch.graph.from_darknet import graph_from_darknet
+    from yolodl_torch.models import YoloModel
+    from yolodl_torch.parallel import make_zero_train_step, place_zero_state, zero_init
+    from yolodl_torch.parallel.mesh import destroy_process_group, free_port, init_process_group
+    from yolodl_torch.train import TrainConfig, make_train_step, train_init
+
+    images, boxes, classes, mask = synthetic_batch(TRAIN_BATCH, IMAGE_SIZE)
+    batch = (torch.from_numpy(images).to(torch.bfloat16).to(DEVICE),
+             *(torch.from_numpy(a).to(DEVICE) for a in (boxes, classes, mask)))
+    mesh = init_process_group(DEVICE, init_method=f"tcp://127.0.0.1:{free_port()}",
+                              rank=0, world_size=1)
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    runs = {}
+    try:
+        for name in ("plain", "zero"):
+            model = YoloModel(graph_from_darknet(darknet), device=DEVICE,
+                              generator=torch.Generator().manual_seed(0))
+            if name == "zero":
+                ts, opt = zero_init(model, TrainConfig(), mesh)
+                ts = place_zero_state(mesh, ts)
+                step = make_zero_train_step(model, opt, TrainConfig(), mesh)
+            else:
+                ts, opt = train_init(model, TrainConfig())
+                step = make_train_step(model, opt, TrainConfig())
+            losses = [float(step(ts, *batch)[1]["total_loss"]) for _ in range(TP_ZERO_STEPS)]
+            runs[name] = (losses, {k: v.detach().cpu().clone()
+                                   for k, v in model.state_dict().items()})
+            del model, opt, ts, step
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+        destroy_process_group()
+    (l_plain, s_plain), (l_zero, s_zero) = runs["plain"], runs["zero"]
+
+    def worst(keys):
+        return max(float((s_zero[k].float() - s_plain[k].float()).abs().max()) for k in keys)
+
+    stats = [k for k in s_plain if k.endswith((".mean", ".var"))]
+    params = [k for k in s_plain if k not in stats]
+    d_params, d_stats = worst(params), worst(stats)
+    if not (np.allclose(l_zero, l_plain, rtol=1e-5, atol=0) and d_params <= 1e-6
+            and d_stats <= 1e-6):
+        raise AssertionError(f"ZeRO-1 at world size 1 vs the plain step: losses {l_zero} vs "
+                             f"{l_plain}, parameters max|d| {d_params}, BN {d_stats}")
+    return {"backend": mesh.backend, "steps": TP_ZERO_STEPS, "losses": l_zero,
+            "plain_losses": l_plain, "params_max_abs_diff": d_params,
+            "bn_max_abs_diff": d_stats}
+
+
+def _state_bytes(optimizer) -> int:
+    return sum(v.numel() * v.element_size() for st in optimizer.state.values()
+               for v in st.values() if isinstance(v, torch.Tensor) and v.dim())
+
+
+def _counting(axis, log) -> None:
+    """Count and time (host clock) every collective of a mesh axis: under
+    gloo a card's tensors are staged through the host, and the call
+    returns when they are back."""
+    for name in ("all_reduce_", "all_gather"):
+        fn = getattr(axis, name)
+
+        def wrapped(*args, _fn=fn, **kwargs):
+            t0 = time.perf_counter()
+            out = _fn(*args, **kwargs)
+            log.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        setattr(axis, name, wrapped)
+
+
+def tp_rank() -> None:
+    """One rank of phase tp's 2-rank run (``python3 -c "import chip_smoke;
+    chip_smoke.tp_rank()"`` under launch_ranks' variables): ZeRO-1 and DP
+    on the flagship, then tensor parallelism 1×2; results to
+    TP_ROOT/rank<r>.json.  The device and sizes come from
+    TP_ROOT/spec.json, written by the parent."""
+    sys.path.insert(0, REPO)
+    with open(os.path.join(TP_ROOT, "spec.json")) as f:
+        spec = json.load(f)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    from yolodl_torch.config import darknet_cfg as dk
+    from yolodl_torch.graph.from_darknet import graph_from_darknet
+    from yolodl_torch.kernels import iou
+    from yolodl_torch.loss import non_max_suppression
+    from yolodl_torch.models import YoloModel
+    from yolodl_torch.parallel import (gather_train_state, init_process_group,
+                                       make_dp_train_step, make_tp_infer, make_tp_mesh,
+                                       make_tp_train_step, make_zero_train_step,
+                                       place_tp_state, place_zero_state, replicate_state,
+                                       shard_batch, shard_batch_tp, tp_shardings, zero_init)
+    from yolodl_torch.parallel.mesh import destroy_process_group, reduce_scatter_route
+    from yolodl_torch.parallel.zero import FlatShard
+    from yolodl_torch.train import TrainConfig, make_train_step, train_init
+    from yolodl_torch.train.lr_schedule import LrScheduleConfig
+
+    mesh = init_process_group(spec["device"])
+    device, on_card = mesh.device, mesh.device.type == "cuda"
+    darknet = dk.Darknet.load(CFG)
+
+    def flagship():
+        return YoloModel(graph_from_darknet(darknet), device=device,
+                         generator=torch.Generator().manual_seed(0))
+
+    out = {"rank": mesh.rank, "backend": mesh.backend, "reason": mesh.reason,
+           "reduce_scatter_route": reduce_scatter_route(mesh.backend)}
+
+    # ZeRO-1 against DP, the flagship at 8 rows a rank, bf16
+    images, boxes, classes, mask = shard_batch(
+        mesh, synthetic_batch(spec["batch"], spec["image_size"]))
+    batch = (torch.from_numpy(images).to(torch.bfloat16).to(device),
+             *(torch.from_numpy(a).to(device) for a in (boxes, classes, mask)))
+    for name in ("zero", "dp"):
+        model = flagship()
+        if name == "zero":
+            ts, opt = zero_init(model, TrainConfig(), mesh)
+            ts = place_zero_state(mesh, ts)
+            step = make_zero_train_step(model, opt, TrainConfig(), mesh)
+        else:
+            ts, opt = train_init(model, TrainConfig())
+            ts = replicate_state(mesh, ts)
+            step = make_dp_train_step(model, opt, TrainConfig(), mesh)
+        metrics, step_ms = [], []
+        for i in range(1 + TP_RANK_TIMED):
+            ms = timed_ms(lambda: metrics.append(step(ts, *batch)[1]), device)
+            if i:
+                step_ms.append(ms)
+        out[name] = {"losses": [float(m["total_loss"]) for m in metrics], "step_ms": step_ms,
+                     "num_matched": int(metrics[-1]["num_matched"]),
+                     "digest": param_digest(model), "optimizer_state_bytes": _state_bytes(opt)}
+        if name == "zero":
+            shard = FlatShard(model, mesh, opt.param_groups[0]["params"][0])
+            flat = torch.ones(shard.padded, dtype=torch.float32, device=device)
+            part = torch.ones(shard.per_shard, dtype=torch.float32, device=device)
+            out[name].update(
+                padded=shard.padded, per_shard=shard.per_shard,
+                reduce_scatter_ms=statistics.median(
+                    [timed_ms(lambda: mesh.reduce_scatter(flat), device) for _ in range(6)][1:]),
+                all_gather_ms=statistics.median(
+                    [timed_ms(lambda: mesh.all_gather(part), device) for _ in range(6)][1:]))
+        del model, opt, ts, step
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # tensor parallelism 1×2: one f32 SGD step against rank 0's single process
+    sgd = TrainConfig(optimizer="sgd", lr=LrScheduleConfig(kind="constant", lr=1e-2))
+    global_batch = synthetic_batch(spec["tp_batch"], spec["image_size"], seed=4)
+    ref = None
+    if mesh.rank == 0:  # rank 1 waits in make_tp_mesh meanwhile
+        ref = {}
+        for name, nudge in (("single", False), ("control", True)):
+            model = flagship()
+            ts, opt = train_init(model, sgd)
+            t_batch = [torch.from_numpy(a).to(device) for a in global_batch]
+            if nudge:  # the same step on images 1 ulp up: rounding alone
+                t_batch[0] = torch.nextafter(t_batch[0], torch.tensor(float("inf"), device=device))
+            _, m = make_train_step(model, opt, sgd)(ts, *t_batch)
+            ref[name] = {
+                "loss": float(m["total_loss"]),
+                "state": {k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
+                "grad": {k: opt.state[p]["momentum_buffer"].detach().cpu().clone()
+                         for k, p in model.named_parameters()},
+                "bytes": sum(v.numel() * v.element_size() for v in model.parameters())
+                + _state_bytes(opt)}
+            del model, opt, ts, t_batch
+            if on_card:
+                torch.cuda.empty_cache()
+    tp = make_tp_mesh(1, 2)
+    log = []
+    _counting(tp.model, log)
+    _counting(tp.data, log)
+    model = flagship()
+    plan = tp_shardings(tp, model)
+    ts, opt = train_init(model, sgd)
+    ts = place_tp_state(tp, ts)
+    rows = shard_batch_tp(tp, [torch.from_numpy(a).to(device) for a in global_batch])
+    _, m = make_tp_train_step(model, opt, sgd, tp)(ts, *rows)
+    tp_out = {"sharded_leaves": sum(v is not None for v in plan.values()),
+              "leaves": len(plan), "loss": float(m["total_loss"]),
+              "param_moment_bytes": sum(v.numel() * v.element_size()
+                                        for v in model.parameters()) + _state_bytes(opt)}
+    full = gather_train_state(tp, ts, sgd)
+    if full is not None:
+        def errors(state, grad, single):
+            """max|d| / max|ref| of every tensor and gradient against ``single``."""
+            out = {}
+            for prefix, tensors, refs in (("", state, single["state"]),
+                                          ("grad/", grad, single["grad"])):
+                for k, v in tensors.items():
+                    r = refs[k]
+                    out[prefix + k] = float((v.cpu() - r).abs().max()) / max(
+                        float(r.abs().max()), 1e-30)
+            return out
+
+        mine = errors(full.model.state_dict(),
+                      {k: full.optimizer.state[p]["momentum_buffer"]
+                       for k, p in full.model.named_parameters()}, ref["single"])
+        control = errors(ref["control"]["state"], ref["control"]["grad"], ref["single"])
+        worst, c_worst = max(mine, key=mine.get), max(control, key=control.get)
+        tp_out.update(single_loss=ref["single"]["loss"], control_loss=ref["control"]["loss"],
+                      single_bytes=ref["single"]["bytes"], tensors=len(mine),
+                      err_of_max=mine[worst], worst=worst,
+                      control_err_of_max=control[c_worst], control_worst=c_worst,
+                      within_tol=sum(e <= TP_F32_TOL for e in mine.values()),
+                      control_within_tol=sum(e <= TP_F32_TOL for e in control.values()))
+    # make_tp_infer (f32) against the unsharded forward of the same weights
+    pred = make_tp_infer(model, tp)(rows[0][:1])
+    if full is not None:
+        with torch.no_grad():
+            whole = full.model(rows[0][:1])
+        tp_out["infer_err_of_max"] = float((pred.cycxhw - whole.cycxhw).abs().max()) / float(
+            whole.cycxhw.abs().max())
+        for fn in (iou.nms_conflict_bits, iou.nms_keep_from_bits):
+            fn.launches = 0
+        nms = non_max_suppression(pred, iou_threshold=NMS_IOU, class_mode="argmax")
+        if on_card:
+            torch.cuda.synchronize()
+        tp_out["nms_launches"] = {fn.__name__: fn.launches
+                                  for fn in (iou.nms_conflict_bits, iou.nms_keep_from_bits)}
+        tp_out["nms_kept"] = int(nms.valid.sum())
+        del full, whole
+    # the bf16 step (default TrainConfig()), one warm-up and TP_TIMED timed
+    ts, opt = train_init(model, TrainConfig())
+    step = make_tp_train_step(model, opt, TrainConfig(), tp)
+    bf16 = (rows[0].to(torch.bfloat16), *rows[1:])
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    step_ms, counts, host_ms, losses = [], [], [], []
+    for i in range(1 + TP_TIMED):
+        log.clear()
+        ms = timed_ms(lambda: losses.append(float(step(ts, *bf16)[1]["total_loss"])), device)
+        if i:
+            step_ms.append(ms)
+            counts.append(len(log))
+            host_ms.append(sum(log))
+    tp_out.update(bf16_losses=losses, bf16_step_ms=step_ms, collectives_per_step=counts,
+                  collective_host_ms_per_step=host_ms,
+                  peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card else None)
+    out["tp"] = tp_out
+    with open(os.path.join(TP_ROOT, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(out, f)
+    destroy_process_group()
+
+
+def tp_two_ranks() -> dict:
+    """ZeRO-1 and TP 1×2 on two ranks sharing one card over gloo; checks."""
+    from yolodl_torch.parallel.mesh import launch_ranks
+
+    write_json(os.path.join(TP_ROOT, "spec.json"), {
+        "device": f"{DEVICE}:0" if DEVICE == "cuda" else DEVICE, "image_size": IMAGE_SIZE,
+        "batch": TRAIN_BATCH, "tp_batch": TP_BATCH})
+    t0 = time.perf_counter()
+    launch_ranks([sys.executable, "-c", "import chip_smoke; chip_smoke.tp_rank()"], 2,
+                 env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO, timeout=TP_TIMEOUT)
+    wall_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(TP_ROOT, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    r0, r1 = ranks
+    want = "ranks share cuda:0" if DEVICE == "cuda" else "ranks run on the CPU"
+    if r0["backend"] != "gloo" or r0["reason"] != want:
+        raise AssertionError(f"2 ranks on one card: {r0['backend']} ({r0['reason']})")
+    z, dp = r0["zero"], r0["dp"]
+    if z["digest"] != r1["zero"]["digest"] or z["losses"] != r1["zero"]["losses"]:
+        raise AssertionError("the two ZeRO-1 ranks differ")
+    if not np.allclose(z["losses"], dp["losses"], rtol=1e-5, atol=0) or \
+            z["num_matched"] != dp["num_matched"]:
+        raise AssertionError(f"ZeRO-1 losses {z['losses']} vs DP {dp['losses']}")
+    t = r0["tp"]
+    if not abs(t["loss"] - t["single_loss"]) <= 1e-4 * abs(t["single_loss"]):
+        raise AssertionError(f"TP 1x2 f32 loss {t['loss']} vs single {t['single_loss']}")
+    bound = max(TP_F32_TOL, TP_CONTROL_FACTOR * t["control_err_of_max"])
+    if not t["err_of_max"] <= bound:
+        raise AssertionError(f"TP 1x2 f32: {t['err_of_max']} of max at {t['worst']} > {bound} "
+                             f"(the 1-ulp control: {t['control_err_of_max']})")
+    if not t["infer_err_of_max"] <= TP_F32_TOL:
+        raise AssertionError(f"make_tp_infer vs unsharded: {t['infer_err_of_max']} of max")
+    if DEVICE == "cuda" and set(t["nms_launches"].values()) != {1}:
+        raise AssertionError(f"NMS after make_tp_infer: launches {t['nms_launches']}")
+    if not all(np.isfinite(t["bf16_losses"])):
+        raise AssertionError(f"TP bf16 losses {t['bf16_losses']}")
+    return {"backend": r0["backend"], "reason": r0["reason"],
+            "zero": {**z, "route": r0["reduce_scatter_route"],
+                     "rank1_step_ms": r1["zero"]["step_ms"], "params_bit_identical": True,
+                     "dp_losses": dp["losses"], "dp_step_ms": dp["step_ms"],
+                     "dp_optimizer_state_bytes": dp["optimizer_state_bytes"]},
+            "tp_1x2": {**t, "rank1_param_moment_bytes": r1["tp"]["param_moment_bytes"],
+                       "rank1_bf16_step_ms": r1["tp"]["bf16_step_ms"]},
+            "wall_s": wall_s}
+
+
+def tp_train_main_rank() -> None:
+    """One rank of a train_main run of phase tp: B1's counters zeroed, the
+    CLI's main with TP_ROOT/train_main.json's argv, then the counters and
+    the rank's stdout to TP_ROOT/train_main.r<rank>.json."""
+    import contextlib
+
+    sys.path.insert(0, REPO)
+    from yolodl_torch.cli import train_main
+    from yolodl_torch.kernels import iou
+
+    with open(os.path.join(TP_ROOT, "train_main.json")) as f:
+        argv = json.load(f)
+    kernels = (iou.nms_conflict_bits, iou.nms_keep_from_bits)
+    for fn in kernels:
+        fn.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        train_main.main(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    write_json(os.path.join(TP_ROOT, f"train_main.r{os.environ['RANK']}.json"),
+               {"launches": {fn.__name__: fn.launches for fn in kernels},
+                "stdout": buf.getvalue()})
+
+
+def tp_train_main(name, training, expect) -> tuple:
+    """train_main MultiDevice [cuda:0, cuda:0] with ``training`` on the toy
+    workspace, 3 steps, an evaluation at step 3 → (summary, rank 0's B1
+    launches)."""
+    import glob
+
+    from yolodl_torch.bridge import params_from_jax
+    from yolodl_torch.graph import Graph
+    from yolodl_torch.models import YoloModel
+    from yolodl_torch.parallel.mesh import launch_ranks
+    from yolodl_torch.train.checkpoint import load_checkpoint
+
+    root = os.path.join(TP_ROOT, name)
+    config = dp_workspace(root)
+    with open(config) as f:
+        raw = json.load(f)
+    raw["training"].update(training)
+    raw["evaluation"] = {"interval": TP_TRAIN_MAIN_STEPS, "batch_size": TP_EVAL_BATCH}
+    write_json(config, raw)
+    write_json(os.path.join(TP_ROOT, "train_main.json"),
+               ["--config-file", config, "--max-steps", str(TP_TRAIN_MAIN_STEPS),
+                *CLI_DEVICE_ARGS])
+    t0 = time.perf_counter()
+    code = launch_ranks(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.tp_train_main_rank()"], 2,
+        env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO, timeout=TP_TIMEOUT)
+    wall_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(TP_ROOT, f"train_main.r{r}.json")) as f:
+            ranks.append(json.load(f))
+    if expect not in ranks[0]["stdout"]:
+        raise AssertionError(f"{name}: no {expect!r} line:\n{ranks[0]['stdout'][-2000:]}")
+    logs = os.path.join(root, "logs")
+    chief = sorted(glob.glob(os.path.join(logs, "*[0-9]", "checkpoints", "*.ckpt")))
+    others = glob.glob(os.path.join(logs, "*-r1", "checkpoints", "*.ckpt"))
+    if len(chief) != TP_TRAIN_MAIN_STEPS or others:
+        raise AssertionError(f"{name}: checkpoints rank 0 {len(chief)}, rank 1 {len(others)}")
+    model = YoloModel(Graph.load_newslab_v1_json(os.path.join(root, "model.json5")),
+                      device=DEVICE)
+    from yolodl_torch.bridge import params_to_jax
+
+    params_t, state_t = params_to_jax(model.state_dict())
+    params, state, _, meta = load_checkpoint(chief[-1], params_t, state_t)
+    params_from_jax(params, state, model=model)
+    with torch.no_grad():
+        pred = model(torch.zeros((1, 3, 32, 32), device=DEVICE))
+    if meta["step"] != TP_TRAIN_MAIN_STEPS or not bool(torch.isfinite(pred.cycxhw).all()):
+        raise AssertionError(f"{name}: the last checkpoint (step {meta['step']}) in a "
+                             "single-device model")
+    batches = -(-8 // TP_EVAL_BATCH)  # dp_workspace's 8 images
+    launches = ranks[0]["launches"]
+    if DEVICE == "cuda" and (set(launches.values()) != {batches}
+                             or set(ranks[1]["launches"].values()) != {0}):
+        raise AssertionError(f"{name}: B1 launches {launches} (rank 1 "
+                             f"{ranks[1]['launches']}), want {batches} = evaluation batches")
+    return ({"exit_code": code, "steps": TP_TRAIN_MAIN_STEPS, "rank0_checkpoints": len(chief),
+             "rank1_checkpoints": 0, "evaluation_batches": batches, "launches": launches,
+             "wall_s": wall_s}, launches)
+
+
+def phase_tp() -> dict:
+    """ZeRO-1 and tensor parallelism (ROADMAP A14b)."""
+    import shutil
+
+    from yolodl_torch.config import darknet_cfg as dk
+
+    t0 = time.perf_counter()
+    shutil.rmtree(TP_ROOT, ignore_errors=True)
+    os.makedirs(TP_ROOT)
+    try:
+        world_one = zero_world_one(dk.Darknet.load(CFG))
+        two_ranks = tp_two_ranks()
+        tp_cli, tp_launches = tp_train_main(
+            "tensor_parallel", {"tensor_parallel": 2}, "mesh: data=1 x model=2 (tensor parallel)")
+        zero_cli, zero_launches = tp_train_main(
+            "zero_optimizer", {"zero_optimizer": True},
+            "zero: optimizer state over 2 ranks, reduce-scatter by ")
+    finally:
+        shutil.rmtree(TP_ROOT, ignore_errors=True)
+    emit({"phase": "tp", "model": "yolov4-csp", "image_size": IMAGE_SIZE,
+          "zero_world_size_1": world_one, "two_ranks_one_card": two_ranks,
+          "train_main_tensor_parallel": tp_cli, "train_main_zero_optimizer": zero_cli,
+          "seconds": time.perf_counter() - t0, "card": card_line()})
+    return {"tp_infer_nms": two_ranks["tp_1x2"]["nms_launches"],
+            "tp_train_main_eval": tp_launches, "zero_train_main_eval": zero_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3887,6 +4342,7 @@ def main() -> int:
     by_path.update(phase_deploy(iou))
     by_path.update(phase_classify(iou))
     by_path.update(phase_dp(iou))
+    by_path.update(phase_tp())
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

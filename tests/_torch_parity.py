@@ -879,6 +879,158 @@ destroy_process_group()
 '''
 
 
+# One rank of a ZeRO-1 or tensor-parallel run, as ``python -c TP_RANK_SCRIPT
+# spec.json``: joins the group from torchrun's variables; for each case
+# builds the model, loads the shared initial weights and takes the case's
+# steps on its rows of each global batch through the case's ``mode``:
+# "tp" / "tp_zero" (make_tp_mesh(*case["mesh"]), shard_batch_tp), "zero" or
+# "dp" (the whole group, shard_batch), "infer" (make_tp_infer on the first
+# batch's images).  Rank 0 writes, per case, the metrics of every step, the
+# full state after the first step and after the last (gathered from the
+# shards under TP), its local parameter shapes, its optimizer's flat slice
+# length and the inference output; every rank writes its parameters'
+# digest.  It imports neither JAX nor the reference.
+TP_RANK_SCRIPT = r"""
+import dataclasses, hashlib, json, sys
+import numpy as np, torch
+torch.set_num_threads(1)
+from yolodl_torch.graph import Graph
+from yolodl_torch.graph.from_darknet import load_darknet_graph
+from yolodl_torch.models import YoloModel
+from yolodl_torch import parallel as par
+from yolodl_torch.parallel.mesh import destroy_process_group
+from yolodl_torch.train import loop
+from yolodl_torch.train.lr_schedule import LrScheduleConfig
+
+spec = json.load(open(sys.argv[1]))
+world = par.init_process_group("cpu")
+out = {}
+
+def full_state(ts, mesh, cfg, mode):
+    if mode in ("tp", "tp_zero"):
+        full = par.gather_train_state(mesh, ts, cfg)
+        return None if full is None else full.model.state_dict()
+    return ts.model.state_dict()
+
+for name, case in spec["cases"].items():
+    path, mode = case["model"], case["mode"]
+    data = np.load(case.get("batches", spec["batches"]))
+    graph = load_darknet_graph(path) if path.endswith(".cfg") else Graph.load_newslab_v1_json(path)
+    model = YoloModel(graph, device="cpu")
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in np.load(case["init"]).items()})
+    kw = dict(case["config"])
+    cfg = loop.TrainConfig(lr=LrScheduleConfig(kind="constant", lr=kw.pop("lr")), **kw)
+    if case.get("darknet"):
+        from yolodl_torch.config import darknet_cfg as dk
+        from yolodl_torch.loss.darknet_loss import head_params_from_darknet
+        size = data["images0"].shape[-1]
+        cfg = dataclasses.replace(cfg, darknet_loss=(
+            graph.detect_head_input_keys(),
+            tuple(head_params_from_darknet(l, size, size)
+                  for l in dk.Darknet.load(path).layers if isinstance(l, dk.Yolo))))
+    accum = case.get("accum", 1)
+    mesh = par.make_tp_mesh(*case["mesh"]) if mode in ("tp", "tp_zero", "infer") else world
+    if mode == "zero":
+        ts, opt = par.zero_init(model, cfg, world)
+        ts = par.place_zero_state(world, ts)
+        step = par.make_zero_train_step(model, opt, cfg, world, accum=accum)
+    else:
+        ts, opt = loop.train_init(model, cfg)
+        ts = par.replicate_state(world, ts)
+    if mode == "dp":
+        step = par.make_dp_train_step(model, opt, cfg, world, accum=accum)
+    elif mode == "tp":
+        ts = par.place_tp_state(mesh, ts)
+        step = par.make_tp_train_step(model, opt, cfg, mesh, accum=accum)
+    elif mode == "tp_zero":
+        ts = par.place_tp_zero_state(mesh, ts, cfg)
+        step = par.make_tp_zero_train_step(model, ts.optimizer, cfg, mesh, accum=accum)
+    elif mode == "infer":
+        par.place_tp_state(mesh, ts)
+        images = torch.from_numpy(data["images0"])
+        rows = par.shard_batch_tp(mesh, (images,))[0]
+        pred = par.make_tp_infer(model, mesh)(rows)
+        fields = ("cycxhw", "obj_logit", "class_logit")
+        every = [mesh.data.all_gather(getattr(pred, f)) for f in fields]
+        if world.rank == 0:
+            for f, v in zip(fields, every):
+                out[f"{name}/infer/{f}"] = v.numpy()
+            out[f"{name}/local_shapes"] = np.asarray(json.dumps(
+                {k: list(v.shape) for k, v in model.state_dict().items()}))
+        continue
+    for i in range(case["steps"]):
+        batch = [torch.from_numpy(data[f"{k}{i}"]) for k in ("images", "boxes", "classes", "mask")]
+        rows = (par.shard_batch_tp(mesh, batch, accum) if mode in ("tp", "tp_zero")
+                else par.shard_batch(world, batch))
+        ts, metrics = step(ts, *rows)
+        for k, v in metrics.items():
+            out[f"{name}/step{i}/{k}"] = v.numpy()
+        if i == 0 and case["steps"] > 1:
+            sd = full_state(ts, mesh, cfg, mode)
+            for k, v in (sd or {}).items():
+                out[f"{name}/first/{k}"] = v.numpy().copy()
+    sd = full_state(ts, mesh, cfg, mode)
+    for k, v in (sd or {}).items():
+        out[f"{name}/state/{k}"] = v.numpy()
+    out[f"{name}/local_shapes"] = np.asarray(json.dumps(
+        {k: list(v.shape) for k, v in model.state_dict().items()}))
+    slices = [len(v) for p in ts.optimizer.param_groups[0]["params"]
+              for v in ts.optimizer.state.get(p, {}).values() if v.dim() == 1]
+    out[f"{name}/opt_slices"] = np.asarray(slices if mode in ("zero", "tp_zero") else [])
+    digest = hashlib.sha256()
+    for v in model.state_dict().values():
+        digest.update(v.numpy().tobytes())
+    out[f"{name}/digest"] = np.asarray(digest.hexdigest())
+    out[f"{name}/step"] = np.asarray(ts.step)
+np.savez(f"{spec['out']}.r{world.rank}.npz", **out)
+destroy_process_group()
+"""
+
+
+def start_tp_ranks(tmp_path, cases, batches, n):
+    """Write the batches and the spec of ``cases`` ({name: {mode, model,
+    init state_dict, config, steps, mesh?, accum?, darknet?, batches?}}; a
+    case's own ``batches`` replace the shared ones) under ``tmp_path`` and
+    start ``n`` ranks of TP_RANK_SCRIPT; → (processes, the output
+    prefix)."""
+    def save(path, batches):
+        keys = ("images", "boxes", "classes", "mask")
+        np.savez(path, **{f"{k}{i}": x for i, b in enumerate(batches) for k, x in zip(keys, b)})
+        return str(path)
+
+    save(tmp_path / "batches.npz", batches)
+    spec_cases = {}
+    for name, case in cases.items():
+        init = tmp_path / f"{name}.init.npz"
+        np.savez(init, **{k: v.numpy() for k, v in case["init"].items()})
+        spec_cases[name] = {**{k: v for k, v in case.items() if k != "init"}, "init": str(init)}
+        if "batches" in case:
+            spec_cases[name]["batches"] = save(tmp_path / f"{name}.batches.npz", case["batches"])
+    spec = {"batches": str(tmp_path / "batches.npz"), "cases": spec_cases,
+            "out": str(tmp_path / "tp")}
+    (tmp_path / "spec.json").write_text(json.dumps(spec))
+    procs = start_ranks(["-c", TP_RANK_SCRIPT, str(tmp_path / "spec.json")], n)
+    return procs, str(tmp_path / "tp")
+
+
+def rank_state(rank, name, which="state"):
+    """The state a rank wrote for case ``name`` as the reference's
+    (params, state) trees of numpy leaves, flattened by path."""
+    prefix = f"{name}/{which}/"
+    sd = {k[len(prefix):]: torch.from_numpy(v) for k, v in rank.items() if k.startswith(prefix)}
+    params, state = params_to_jax(sd)
+    return flat_leaves(params), flat_leaves(state)
+
+
+def assert_trees_close(mine, ref, atol, rel=False):
+    """Every leaf of ``mine`` within ``atol`` of ``ref``'s (times max|ref|
+    when ``rel``), the same keys on both."""
+    assert mine.keys() == ref.keys(), set(mine) ^ set(ref)
+    for k in ref:
+        tol = atol * float(np.abs(ref[k]).max()) if rel else atol
+        np.testing.assert_allclose(mine[k], ref[k], rtol=0, atol=tol, err_msg=k)
+
+
 def start_ranks(cmd, n, env=None):
     """``cmd`` as ranks 0 … n-1 of one gloo group on 127.0.0.1 (torchrun's
     variables); → the processes, stderr piped."""
@@ -952,6 +1104,141 @@ def reference_dp(jm, params, state, j_cfg, batches, n=2, accum=1):
         if first is None:
             first = jax.tree_util.tree_map(np.array, ts)  # a copy: the step donates ts
     return first, ts, out
+
+
+def reference_parallel(kind, jm, params, state, j_cfg, batches, mesh_shape=(2,), accum=1):
+    """The reference's ``kind`` step ("tp", "tp_zero" on
+    ``make_tp_mesh(*mesh_shape)``, "zero" on ``make_mesh(*mesh_shape)``)
+    over ``batches`` → (TrainState after the first step, final TrainState,
+    [metrics as numpy])."""
+    from yolodl_tpu import parallel as jp
+
+    p = jax.tree_util.tree_map(jnp.asarray, params)
+    st = jax.tree_util.tree_map(jnp.asarray, state)
+    if kind == "zero":
+        mesh = jp.make_mesh(*mesh_shape)
+        ts, opt = jp.zero_init(jm, j_cfg, mesh, seed=0)
+        ts = j_loop.TrainState(p, st, ts.opt_state, jnp.zeros((), jnp.int32),
+                               jax.tree_util.tree_map(jnp.copy, p) if j_cfg.use_ema else None)
+        ts = jp.place_zero_state(mesh, ts)
+        step = jp.make_zero_train_step(jm, opt, j_cfg, mesh, accum=accum)
+        place = lambda b: jp.shard_batch(mesh, b)  # noqa: E731
+    else:
+        mesh = jp.make_tp_mesh(*mesh_shape)
+        opt = j_loop.make_optimizer(j_cfg)
+        ts = j_loop.TrainState(p, st, opt.init(p), jnp.zeros((), jnp.int32),
+                               jax.tree_util.tree_map(jnp.copy, p) if j_cfg.use_ema else None)
+        zero = kind == "tp_zero"
+        ts = (jp.place_tp_zero_state if zero else jp.place_tp_state)(mesh, ts)
+        step = (jp.make_tp_zero_train_step if zero else jp.make_tp_train_step)(
+            jm, opt, j_cfg, mesh, accum=accum)
+        place = lambda b: jp.shard_batch_tp(mesh, b)  # noqa: E731
+    out, first = [], None
+    for batch in batches:
+        ts, m = step(ts, *place(tuple(map(jnp.asarray, batch))))
+        out.append({k: np.asarray(v) for k, v in m.items()})
+        if first is None:
+            first = jax.tree_util.tree_map(np.array, ts)  # a copy: the step donates ts
+    return first, ts, out
+
+
+# tests/test_train.py tiny_model(bn=True): two ConvBn2D of 8 and 16 channels
+# and a 7-channel head
+TINY_BN = {"main_group": "m", "groups": {"m": [
+    {"name": "input", "kind": "Input", "shape": ["_", 3, 32, 32]},
+    {"kind": "ConvBn2D", "c": 8, "k": 3, "s": 2},
+    {"kind": "ConvBn2D", "c": 16, "k": 3, "s": 2},
+    {"name": "head", "kind": "ConvBn2D", "c": 7, "k": 1, "act": "linear",
+     "bn": {"enabled": False}},
+    {"name": "det", "kind": "Detect2D", "classes": 2, "anchors": [[0.3, 0.3]]},
+    {"name": "output", "kind": "MergeDetect2D", "from": ["det"]},
+]}}
+
+# tests/test_train.py TestDarknetLossImpl.CFG: BN-free, one [yolo] head
+DARKNET_CFG = """[net]
+width=64
+height=64
+channels=3
+[convolutional]
+filters=8
+size=3
+stride=4
+pad=1
+activation=leaky
+[convolutional]
+filters=24
+size=1
+activation=linear
+[yolo]
+mask=0,1,2
+anchors=6,8, 10,14, 18,24
+classes=3
+num=3
+iou_loss=ciou
+iou_thresh=0.2
+max_delta=5
+ignore_thresh=0.6
+"""
+
+
+def darknet_batch():
+    """tests/test_train.py _setup's batch: two 64² images, one truth each."""
+    rng = np.random.default_rng(0)
+    return (rng.random((2, 3, 64, 64)).astype(np.float32),
+            np.asarray([[[0.5, 0.5, 0.3, 0.3]], [[0.4, 0.6, 0.2, 0.2]]], np.float32),
+            np.zeros((2, 1), np.int32), np.ones((2, 1), bool))
+
+
+def fake_batches(n, rows=8, size=32, seed=0):
+    """tests/test_train.py fake_batch: normal images, one box an image,
+    classes alternating; seeded numpy."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        images = rng.normal(size=(rows, 3, size, size)).astype(np.float32)
+        boxes = np.zeros((rows, 4, 4), np.float32)
+        classes = np.zeros((rows, 4), np.int32)
+        mask = np.zeros((rows, 4), bool)
+        boxes[:, 0] = (0.5, 0.5, 0.3, 0.3)
+        classes[:, 0] = np.arange(rows) % 2
+        mask[:, 0] = True
+        out.append((images, boxes, classes, mask))
+    return out
+
+
+def model_pair(spec, path):
+    """(reference model, params, state, port model, port weights) of a
+    NEWSLAB dict, the reference's seed-0 init carried through the bridge."""
+    path.write_text(json.dumps(spec))
+    from yolodl_tpu.config import newslab as jnewslab
+    from yolodl_tpu.graph import Graph as JGraph
+    from yolodl_torch.graph import Graph
+
+    jm = JYoloModel(JGraph.from_model(jnewslab.parse_model_dict(spec)), spd_stem="off")
+    params, state = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.PRNGKey(0)))
+    tm = YoloModel(Graph.load_newslab_v1_json(str(path)), device="cpu")
+    params_from_jax(params, state, model=tm)
+    return jm, params, state, tm, {k: v.clone() for k, v in tm.state_dict().items()}
+
+
+def port_single(model, t_cfg, batches, accum=1):
+    """The port's single-process step over the global ``batches`` → (state
+    dict after the first step, final state dict, [total losses])."""
+    ts, opt = t_loop.train_init(model, t_cfg)
+    step = t_loop.make_train_step(model, opt, t_cfg, accum=accum)
+    losses, first = [], None
+    for batch in batches:
+        losses.append(float(step(ts, *map(torch.from_numpy, batch))[1]["total_loss"]))
+        if first is None:
+            first = {k: v.clone() for k, v in model.state_dict().items()}
+    return first, {k: v.clone() for k, v in model.state_dict().items()}, losses
+
+
+def state_trees(sd):
+    """A port state dict as flat (params, state) leaves of the reference's
+    trees."""
+    params, state = params_to_jax(sd)
+    return flat_leaves(params), flat_leaves(state)
 
 
 DP_TINY = os.path.join(REPO, "cfg", "darknet", "yolov4-tiny.cfg")
@@ -1065,3 +1352,55 @@ def write_first_checkpoint(config_path, checkpoint_dir):
     params, state = params_to_jax(model.state_dict())
     return save_checkpoint(checkpoint_dir, ts.step, float(metrics["total_loss"]), params, state,
                            t_loop.optimizer_state_tree(ts, t_cfg))
+
+
+# -- train_main runs over several ranks (test_torch_dp_cli.py, test_torch_tp_cli.py)
+
+def logged(run_dir, tag="loss/total_loss"):
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    acc = EventAccumulator(run_dir, size_guidance={"scalars": 0})
+    acc.Reload()
+    return [(e.step, e.value) for e in acc.Scalars(tag)]
+
+
+def rank_streams(package, config_path, world=2):
+    """Each rank's TrainingStream as train_main builds it: records[r::2],
+    seed r, the local batch, the config's recipe, decoded with PIL."""
+    if package == "ref":
+        from yolodl_tpu.config.app_config import TrainAppConfig
+        from yolodl_tpu.data import (MosaicMixer, SanitizedDataset, TrainingStream,
+                                     TrainingStreamConfig, make_decode_loader)
+    else:
+        from yolodl_torch.config.app_config import TrainAppConfig
+        from yolodl_torch.data.cache import make_decode_loader
+        from yolodl_torch.data.datasets import SanitizedDataset
+        from yolodl_torch.data.mosaic import MosaicMixer
+        from yolodl_torch.data.pipeline import TrainingStream, TrainingStreamConfig
+    config = TrainAppConfig.load(config_path)
+    pre = config.preprocessor
+    records = SanitizedDataset(config.dataset.open(os.path.dirname(config_path)),
+                               out_of_bound_tolerance=pre.out_of_bound_tolerance,
+                               min_bbox_size=pre.min_bbox_size).records()
+    size = config.dataset.image_size
+    return [TrainingStream(records[r::world], make_decode_loader((size, size)),
+                           TrainingStreamConfig(
+                               batch_size=config.batch_size // world, seed=r,
+                               mosaic_prob=pre.mosaic_prob, mixup_prob=pre.mixup_prob,
+                               cutmix_prob=pre.cutmix_prob,
+                               mosaic=MosaicMixer(mosaic_margin=pre.mosaic_margin),
+                               color_jitter=pre.color_jitter,
+                               color_jitter_prob=pre.color_jitter_prob,
+                               random_affine=pre.affine, affine_prob=pre.affine_prob,
+                               bbox_scaling=pre.bbox_scaling, workers=pre.workers,
+                               ordered=not pre.unordered))
+            for r in range(world)]
+
+
+def first_batches(streams, n):
+    out = []
+    for stream in streams:
+        it = iter(stream)
+        out.append([next(it) for _ in range(n)])
+        it.close()  # stops the stream's workers
+    return out

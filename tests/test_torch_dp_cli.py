@@ -29,63 +29,13 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import REPO, write_first_checkpoint
+from _torch_parity import REPO, first_batches, logged, rank_streams, write_first_checkpoint
 from _torch_parity import write_train_workspace as write_workspace
 from yolodl_tpu.cli import train_main as j_train
 
 torch.set_num_threads(2)
 
 MULTI = {"type": "MultiDevice", "devices": ["cuda:0", "cuda:1"]}
-
-
-def logged(run_dir, tag="loss/total_loss"):
-    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
-
-    acc = EventAccumulator(run_dir, size_guidance={"scalars": 0})
-    acc.Reload()
-    return [(e.step, e.value) for e in acc.Scalars(tag)]
-
-
-def rank_streams(package, config_path, world=2):
-    """Each rank's TrainingStream as train_main builds it: records[r::2],
-    seed r, the local batch, the config's recipe, decoded with PIL."""
-    if package == "ref":
-        from yolodl_tpu.config.app_config import TrainAppConfig
-        from yolodl_tpu.data import (MosaicMixer, SanitizedDataset, TrainingStream,
-                                     TrainingStreamConfig, make_decode_loader)
-    else:
-        from yolodl_torch.config.app_config import TrainAppConfig
-        from yolodl_torch.data.cache import make_decode_loader
-        from yolodl_torch.data.datasets import SanitizedDataset
-        from yolodl_torch.data.mosaic import MosaicMixer
-        from yolodl_torch.data.pipeline import TrainingStream, TrainingStreamConfig
-    config = TrainAppConfig.load(config_path)
-    pre = config.preprocessor
-    records = SanitizedDataset(config.dataset.open(os.path.dirname(config_path)),
-                               out_of_bound_tolerance=pre.out_of_bound_tolerance,
-                               min_bbox_size=pre.min_bbox_size).records()
-    size = config.dataset.image_size
-    return [TrainingStream(records[r::world], make_decode_loader((size, size)),
-                           TrainingStreamConfig(
-                               batch_size=config.batch_size // world, seed=r,
-                               mosaic_prob=pre.mosaic_prob, mixup_prob=pre.mixup_prob,
-                               cutmix_prob=pre.cutmix_prob,
-                               mosaic=MosaicMixer(mosaic_margin=pre.mosaic_margin),
-                               color_jitter=pre.color_jitter,
-                               color_jitter_prob=pre.color_jitter_prob,
-                               random_affine=pre.affine, affine_prob=pre.affine_prob,
-                               bbox_scaling=pre.bbox_scaling, workers=pre.workers,
-                               ordered=not pre.unordered))
-            for r in range(world)]
-
-
-def first_batches(streams, n):
-    out = []
-    for stream in streams:
-        it = iter(stream)
-        out.append([next(it) for _ in range(n)])
-        it.close()  # stops the stream's workers
-    return out
 
 
 def reference_dp_losses(config_path, ckpt, global_batches):

@@ -85,15 +85,17 @@ def test_multi_scale_resize_matches_jax_image_resize(src, dst):
 @pytest.mark.parametrize("training,item", [
     ({"device_config": {"type": "MultiDevice", "devices": ["cuda:0", "cuda:1"]},
       "pipeline_parallel": 2}, "ROADMAP A14c"),
-    # plain MultiDevice trains since A14a (test_torch_dp_cli.py); ZeRO-1 not
-    ({"device_config": {"type": "MultiDevice", "devices": ["cuda:0", "cuda:1"]},
-      "zero_optimizer": True}, "ROADMAP A14b"),
-    ({"device_config": {"type": "MultiDevice", "devices": ["cuda:0", "cuda:1"]},
-      "tensor_parallel": 2}, "ROADMAP A14b"),
+    # MultiDevice trains data-parallel since A14a (test_torch_dp_cli.py), and
+    # with ZeRO-1 or tensor parallelism since A14b (test_torch_tp_cli.py);
+    # MultiProcess keeps the reference's config errors for these two
+    ({"device_config": {"type": "MultiProcess"}, "zero_optimizer": True},
+     "zero_optimizer is single-controller only"),
+    ({"device_config": {"type": "MultiProcess"}, "tensor_parallel": 2},
+     "tensor_parallel is single-controller only"),
 ])
 def test_unported_branches_name_their_item(tmp_path, training, item):
     config = write_workspace(tmp_path, **training)
-    with pytest.raises((NotImplementedError, SystemExit), match=item):
+    with pytest.raises((NotImplementedError, SystemExit, ValueError), match=item):
         run(t_train, config, "--max-steps", "1", "--device", "cpu")
 
 

@@ -101,7 +101,8 @@ def test_unported_part_fails_with_one_error_line(tmp_path):
     raw = json.loads(open(config).read())
     raw["training"]["device_config"] = {"type": "MultiDevice",
                                         "devices": ["cuda:0", "cuda:1"]}
-    raw["training"]["tensor_parallel"] = 2  # data parallel is ported (A14a), this not
+    # data, ZeRO-1 and tensor parallelism are ported (A14a, A14b), this not
+    raw["training"]["pipeline_parallel"] = 2
     with open(config, "w") as f:
         json.dump(raw, f)
     res = subprocess.run(
@@ -110,7 +111,7 @@ def test_unported_part_fails_with_one_error_line(tmp_path):
         timeout=120)
     assert res.returncode == 1
     errors = [x for x in res.stderr.splitlines() if x.startswith("error:")]
-    assert len(errors) == 1 and "ROADMAP A14b" in errors[0], res.stderr
+    assert len(errors) == 1 and "ROADMAP A14c" in errors[0], res.stderr
 
 
 def test_darknet_loss_run_exits_zero(tmp_path):

@@ -47,9 +47,21 @@ on the step to stop at (an all-reduce MAX of a stop flag each step).  Rank
 0 alone runs the in-training inference and evaluation and writes
 checkpoints; the others log into a ``-r{rank}`` run dir.
 
-Not ported, each raising ``NotImplementedError`` naming its ROADMAP item:
-tensor parallelism and ZeRO-1 with several devices (A14b), pipeline
-parallelism (A14c).
+``training.zero_optimizer`` with several devices trains through
+``parallel/zero.py`` (ZeRO-1: the optimizer state cut over the ranks; its
+checkpoints hold the reference's flat ``opt/`` vectors, gathered onto rank
+0).  ``training.tensor_parallel M`` trains through ``parallel/tp.py`` on a
+``N/M × M`` data × model mesh: each data index d streams
+``records[d::N/M]`` with ``seed=d`` and a local batch of ``batch_size /
+(N/M)``, and the M ranks of its model group stream the same records (a
+hash of their first batch is compared).  Every rank joins the gathers of
+the state at the steps that evaluate, infer or save, and rank 0 evaluates
+and writes the full model in the standard layout.  As in the reference,
+``zero_optimizer`` is ignored under ``tensor_parallel``, and MultiProcess
+rejects both.
+
+Not ported, raising ``NotImplementedError`` naming its ROADMAP item:
+pipeline parallelism (A14c).
 """
 
 from __future__ import annotations
@@ -119,20 +131,13 @@ def _resolve_auto_loss_options(config, graph):
 
 
 def _not_ported_parallelism(config) -> None:
-    """The reference's branches for tensor parallelism and ZeRO-1
-    (yolodl_tpu/cli/train_main.py:412-436, :515-527: ROADMAP A14b) and for
-    pipeline parallelism (:482-513: A14c)."""
-    what = None
-    if config.tensor_parallel > 1:
-        what, item = f"training.tensor_parallel {config.tensor_parallel}", "A14b"
-    elif config.zero_optimizer and config.n_devices > 1:
-        what, item = f"training.zero_optimizer over {config.n_devices} devices", "A14b"
-    elif config.pipeline_parallel > 1:
-        what, item = f"training.pipeline_parallel {config.pipeline_parallel}", "A14c"
-    if what is not None:
+    """The reference's branch for pipeline parallelism
+    (yolodl_tpu/cli/train_main.py:482-513: ROADMAP A14c)."""
+    if config.pipeline_parallel > 1:
         raise NotImplementedError(
-            f"{what}: not ported to yolodl_torch yet (ROADMAP {item}); "
-            "train data-parallel (MultiDevice or MultiProcess) instead")
+            f"training.pipeline_parallel {config.pipeline_parallel}: not ported to "
+            "yolodl_torch yet (ROADMAP A14c); train data-parallel (MultiDevice or "
+            "MultiProcess) or tensor-parallel instead")
 
 
 def _join_ranks(config, args):
@@ -253,11 +258,12 @@ def main(argv=None):
                 f"device_config lists {config.n_devices} devices but "
                 f"{mesh.world_size} ranks joined")
         config = dataclasses.replace(config, n_devices=mesh.world_size)
-        if config.batch_size % (config.n_devices * config.accumulation_steps):
+        replicas = config.n_devices // config.tensor_parallel
+        if config.batch_size % (replicas * config.accumulation_steps):
             raise SystemExit(
                 f"training.batch_size ({config.batch_size}) must be "
                 f"divisible by global devices x accumulation_steps "
-                f"({config.n_devices} x {config.accumulation_steps})")
+                f"({replicas} x {config.accumulation_steps})")
         if config.multi_process is not None:
             print(f"multi-process: rank {mesh.rank}/{mesh.world_size}, "
                   f"1 local / {config.n_devices} global devices", flush=True)
@@ -269,6 +275,33 @@ def main(argv=None):
         device = resolve_device(args.device)
     rank, world = (mesh.rank, mesh.world_size) if mesh is not None else (0, 1)
     is_chief = rank == 0
+
+    # ZeRO-1 and tensor parallelism (yolodl_tpu/cli/train_main.py:412-436)
+    use_tp = config.tensor_parallel > 1
+    use_zero = config.zero_optimizer and config.n_devices > 1 and not use_tp
+    if config.zero_optimizer and config.n_devices <= 1:
+        print("zero_optimizer requires a MultiDevice config; ignoring "
+              "(optimizer-state sharding is a no-op on one device)")
+    if config.zero_optimizer and use_tp and is_chief:
+        print("tensor_parallel already shards the optimizer state on the "
+              "model axis; ignoring zero_optimizer")
+    tp_mesh = None
+    if use_tp:
+        from ..parallel.mesh import make_tp_mesh
+
+        tp_mesh = make_tp_mesh(config.n_devices // config.tensor_parallel,
+                               config.tensor_parallel)
+        if is_chief:
+            print(f"mesh: data={tp_mesh.n_data} x model={tp_mesh.n_model} "
+                  "(tensor parallel)", flush=True)
+    if use_zero and is_chief:
+        from ..parallel.mesh import reduce_scatter_route
+
+        print(f"zero: optimizer state over {world} ranks, reduce-scatter by "
+              f"{reduce_scatter_route(mesh.backend)} ({mesh.backend})", flush=True)
+    # the data streams: one per data index (a TP model group streams one)
+    data_rank, data_world = ((tp_mesh.data_index, tp_mesh.n_data) if use_tp
+                             else (rank, world))
 
     # timestamped run dir + config copy (main.rs:34-51); other ranks get a
     # rank-suffixed dir (no checkpoints land there, so FromRecent resume
@@ -380,12 +413,12 @@ def main(argv=None):
     # makes its local slice of the global batch
     records = dataset.records()
     local_batch = config.batch_size
-    if world > 1:
-        if len(records) <= rank:
-            raise ValueError(f"rank {rank} of {world} gets no records: the dataset holds "
-                             f"{len(records)}")
-        records = records[rank::world]
-        local_batch = config.batch_size // world
+    if data_world > 1:
+        if len(records) <= data_rank:
+            raise ValueError(f"rank {data_rank} of {data_world} gets no records: the "
+                             f"dataset holds {len(records)}")
+        records = records[data_rank::data_world]
+        local_batch = config.batch_size // data_world
     # preprocessor.pipeline.device "cuda" ("tpu" in the config's own words):
     # defer the pixel augmentation to the batched device program
     # (data/device_augment.py).  A multi-step call stacks HOST arrays, the
@@ -407,10 +440,17 @@ def main(argv=None):
                   "of pipeline.device='tpu'", file=sys.stderr)
         else:
             defer_images = True
+    ordered = not pre.unordered
+    if use_tp and not ordered:
+        # the ranks of a model group must draw the same batches
+        if is_chief:
+            print("tensor_parallel: the ranks of a model group stream the same "
+                  "records; ignoring unordered records/batches")
+        ordered = True
     stream_cfg = TrainingStreamConfig(
         batch_size=local_batch,
         defer_images=defer_images,
-        seed=rank,  # decorrelate the ranks' augmentation streams
+        seed=data_rank,  # decorrelate the data ranks' augmentation streams
         mosaic_prob=pre.mosaic_prob,
         mixup_prob=pre.mixup_prob,
         cutmix_prob=pre.cutmix_prob,
@@ -421,7 +461,7 @@ def main(argv=None):
         affine_prob=pre.affine_prob,
         bbox_scaling=pre.bbox_scaling,
         workers=pre.workers,
-        ordered=not pre.unordered,
+        ordered=ordered,
     )
     stream = TrainingStream(records, loader, stream_cfg)
 
@@ -507,21 +547,27 @@ def main(argv=None):
         debug_stat=config.logging.enable_debug_stat,
         compute_dtype={"float32": None}.get(config.precision, config.precision),
     )
-    if config.zero_optimizer and config.n_devices <= 1:
-        print("zero_optimizer requires a MultiDevice config; ignoring "
-              "(optimizer-state sharding is a no-op on one device)")
-    ts, optimizer = train_init(model, train_cfg)
+    if use_zero:
+        from ..parallel.zero import (load_zero_optimizer_state_tree, place_zero_state,
+                                     zero_init, zero_optimizer_state_tree)
 
-    def host_trees():
-        """(params, state, opt, ema) as the reference's trees, on the host."""
-        params, state = params_to_jax(model.state_dict())
+        ts, optimizer = zero_init(model, train_cfg, mesh)
+    else:
+        ts, optimizer = train_init(model, train_cfg)
+
+    def host_trees(ts, opt=None):
+        """(params, state, opt, ema) of ``ts`` as the reference's trees, on
+        the host; ``opt`` in place of the optimizer's own tree."""
+        params, state = params_to_jax(ts.model.state_dict())
         ema = params_to_jax(ts.ema_params)[0] if ts.ema_params is not None else None
-        return params, state, optimizer_state_tree(ts, train_cfg), ema
+        return params, state, (optimizer_state_tree(ts, train_cfg) if opt is None else opt), ema
 
     # checkpoint restore (utils/checkpoint.rs:24-81 semantics)
     restored = None
     if config.checkpoint.mode in ("from_recent", "from_file"):
-        params_t, state_t, opt_t, _ = host_trees()
+        # a ZeRO run's template is the flat layout (every rank gathers it)
+        params_t, state_t, opt_t, _ = host_trees(
+            ts, zero_optimizer_state_tree(ts, train_cfg, mesh) if use_zero else None)
         if config.checkpoint.mode == "from_recent":
             # scan prior runs under the logging dir, not this run's empty dir
             restored = load_recent_checkpoint_in_runs(
@@ -534,7 +580,8 @@ def main(argv=None):
         params_from_jax(params, state, model=model)
         if opt_state is not None:
             ts.step = int(meta["step"])
-            load_optimizer_state_tree(ts, train_cfg, opt_state)
+            (load_zero_optimizer_state_tree if use_zero else load_optimizer_state_tree)(
+                ts, train_cfg, opt_state)
         ts.step = int(meta["step"])
         # restored EMA (if present) continues accumulating; otherwise the
         # EMA shadow restarts from the restored params
@@ -556,14 +603,32 @@ def main(argv=None):
             print(f"data stream resumed at record {stream_cfg.start_records}")
 
     accum = config.accumulation_steps
+    full_ts = None  # under TP: rank 0's full single-device state
     if mesh is not None:
         from ..parallel.dp import (make_dp_train_step, replicate_state,
                                    shard_batch_multiprocess)
 
-        # every rank starts from rank 0's state (restored or drawn)
-        ts = replicate_state(mesh, ts)
+        # every rank starts from rank 0's state (restored or drawn); ZeRO
+        # keeps this rank's slice of the optimizer state, TP its shards
+        ts = (place_zero_state if use_zero else replicate_state)(mesh, ts)
+    if use_tp:
+        from ..parallel.tp import (check_model_group_batch, gather_train_state,
+                                   make_tp_train_step, place_tp_state)
+
+        ts = place_tp_state(tp_mesh, ts)
+        # rank 0 keeps a full model for the evaluation, the inference and the
+        # checkpoints, refilled by every rank's gather (memory: a second
+        # model and its moments on rank 0's device)
+        full_ts = gather_train_state(tp_mesh, ts, train_cfg)
+    if use_zero:
+        from ..parallel.zero import make_zero_train_step
+    eval_model = full_ts.model if full_ts is not None else model
 
     def train_step(cfg):
+        if use_tp:
+            return make_tp_train_step(model, optimizer, cfg, tp_mesh, accum=accum)
+        if use_zero:
+            return make_zero_train_step(model, optimizer, cfg, mesh, accum=accum)
         if mesh is not None:
             return make_dp_train_step(model, optimizer, cfg, mesh, accum=accum)
         return make_train_step(model, optimizer, cfg, accum=accum)
@@ -617,7 +682,7 @@ def main(argv=None):
             """Run inference on one training image and log the overlay:
             GT yellow, predictions per-class colors (detect-CLI taxonomy)."""
             with torch.no_grad():
-                pred = model(torch.from_numpy(np.asarray(image_chw)[None]).to(device))
+                pred = eval_model(torch.from_numpy(np.asarray(image_chw)[None]).to(device))
                 nms = non_max_suppression(
                     pred,
                     iou_threshold=config.nms_iou_thresh,
@@ -660,7 +725,7 @@ def main(argv=None):
             ev_records = ev_records[: config.eval_limit]
         ev_size = ev_cfg.image_size
         evaluator = DatasetEvaluator(
-            model, ev_records, make_decode_loader((ev_size, ev_size)),
+            eval_model, ev_records, make_decode_loader((ev_size, ev_size)),
             num_classes=len(ev_ds.classes),
             batch_size=config.eval_batch_size or config.batch_size,
             iou_threshold=config.nms_iou_thresh,
@@ -722,11 +787,27 @@ def main(argv=None):
 
     saver = AsyncCheckpointer()
     best_eval = {"map": -1.0}
+    synced = {"step": None, "opt": None}
+
+    def sync_state(step):
+        """Every rank, once a step, at each step that evaluates, infers or
+        saves: under TP the full state gathered into rank 0's ``full_ts``,
+        under ZeRO the optimizer's flat moments gathered for the checkpoint.
+        The ranks decide these steps alike, so none waits in a gather the
+        others skip."""
+        if synced["step"] == step:
+            return
+        synced["step"] = step
+        if use_tp:
+            gather_train_state(tp_mesh, ts, train_cfg, into=full_ts)
+        if use_zero:
+            synced["opt"] = zero_optimizer_state_tree(ts, train_cfg, mesh)
 
     def save_checkpoint(step, total):
-        if not is_chief:  # the state is replicated: rank 0 writes it
+        sync_state(step)
+        if not is_chief:  # rank 0 writes the (gathered) state
             return
-        params, state, opt, ema = host_trees()
+        params, state, opt, ema = host_trees(full_ts if use_tp else ts, synced["opt"])
         saver.save(ckpt_dir, step, total, params, state, opt, ema_params=ema)
 
     def stop_requested():
@@ -797,16 +878,21 @@ def main(argv=None):
             )
         if not final:
             return False
-        if (infer_one is not None
-                and (step <= window or step % 200 < window)
-                and last_batch.get("images") is not None
-                and last_batch.get("gt") is not None):
+        # decided alike on every rank: each joins sync_state at these steps
+        infer_due = (config.logging.enable_inference
+                     and (step <= window or step % 200 < window)
+                     and last_batch.get("images") is not None
+                     and last_batch.get("gt") is not None)
+        eval_due = bool(config.eval_interval) and (
+            (step // config.eval_interval) > ((step - window) // config.eval_interval))
+        if infer_due or eval_due:
+            sync_state(step)
+        if infer_due and infer_one is not None:
             imgs = last_batch["images"]
             gt_boxes, gt_mask = last_batch["gt"]
             infer_one(step, _host(imgs[0]), gt_boxes[0], gt_mask[0])
         saved = False
-        if (evaluator is not None and (step // config.eval_interval)
-                > ((step - window) // config.eval_interval)):
+        if eval_due and evaluator is not None:
             report = evaluator()
             logger.log_scalars(step, {
                 "val/mAP@0.5": report["mAP@0.5"],
@@ -854,7 +940,7 @@ def main(argv=None):
     profiler = None
     profiled = False
     pending = []
-    host_step = ts.step
+    host_step = first_step = ts.step
     # multi-step calls stack HOST arrays into one k-step upload
     if scan_k > 1:
         source = ((rec, None) for rec in iter(stream))
@@ -911,6 +997,8 @@ def main(argv=None):
             if mesh is not None:  # each rank's local rows, as they are
                 images, gt_boxes, gt_classes, gt_mask = shard_batch_multiprocess(
                     mesh, (images, gt_boxes, gt_classes, gt_mask))
+            if use_tp and host_step == first_step:  # a model group streams alike
+                check_model_group_batch(tp_mesh, (images, gt_boxes, gt_classes, gt_mask))
             images = maybe_rescale(images, host_step)
             last_batch["images"] = record.images
             last_batch["gt"] = (record.boxes, record.mask)

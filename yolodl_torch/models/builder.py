@@ -43,6 +43,11 @@ reentrant), so the backward recomputes what lies inside the node from its
 input.  The checkpointed function returns the node's new BN statistics and
 the writes into the buffers stay outside it: a write inside would run
 again at the recompute and apply the momentum twice.
+
+Under tensor parallelism (``parallel/tp.py``) a conv or Linear node holds
+this rank's output channels and its ``shard`` (a ``LayerShard``), which
+the node's apply function calls around the conv and for BN; the graph
+walk is the same.
 """
 
 from __future__ import annotations
@@ -138,7 +143,12 @@ class DarkBatchNorm(nn.Module):
 
 
 class _NormedNode(nn.Module):
-    """A layer whose ``bn`` attribute is a DarkBatchNorm or None."""
+    """A layer whose ``bn`` attribute is a DarkBatchNorm or None.  Under
+    tensor parallelism ``shard`` is its ``parallel/tp.py`` ``LayerShard``
+    (set by ``place_tp_state``), and the layer holds this rank's output
+    channels only."""
+
+    shard = None
 
     def state(self) -> Dict:
         return {"bn": self.bn.state()} if self.bn is not None else {}
@@ -233,7 +243,10 @@ class SubLayers(nn.ModuleDict):
     """The named sub-layers of one node (the sub-convs of a DarkCsp2D or
     SppCsp2D block, the connected sub-layers of [rnn]/[gru]/[lstm], the
     sub-convs of [crnn]); ``params()``/``state()`` give the nested trees
-    that the node's apply function takes."""
+    that the node's apply function takes.  The node is never sharded as a
+    whole (``shard`` None); under tensor parallelism its sub-layers are."""
+
+    shard = None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for m in self.values():
@@ -375,12 +388,13 @@ class GraphModel(nn.Module):
             block = (blocks.dark_csp_apply if isinstance(layer, cfg.DarkCsp2D)
                      else blocks.spp_csp_apply)
             in_c = self._in_c[key]
+            shards = {name: sub.shard for name, sub in m.items()}
 
-            def fn(params, state, inp, layer, train):
-                return block(params, state, inp, layer, in_c, train)
+            def fn(params, state, inp, layer, train, shard):
+                return block(params, state, inp, layer, in_c, train, shards)
 
         def run(inp):
-            return fn(m.params(), m.state(), inp, layer, train)
+            return fn(m.params(), m.state(), inp, layer, train, shard=m.shard)
 
         if self.remat and torch.is_grad_enabled():
             out, new_state = checkpoint(run, x, use_reentrant=False)
@@ -398,7 +412,7 @@ class GraphModel(nn.Module):
         params, state = m.params(), m.state()
         if isinstance(layer, cfg.Linear):
             out, new_state = recurrent.dense_apply(
-                params, state, recurrent.flatten_nhwc(x), layer.act, train)
+                params, state, recurrent.flatten_nhwc(x), layer.act, train, shard=m.shard)
         elif isinstance(layer, cfg.DarknetRnn):
             out, new_state = recurrent.rnn_apply(
                 params, state, x, hidden=layer.hidden, act=layer.act,
@@ -488,9 +502,12 @@ class GraphModel(nn.Module):
                 outputs[key] = self._apply_bn_node(key, layer, outputs[ik.single_key], train)
             elif isinstance(layer, cfg.Conv2D):
                 m = self._node(key)
-                outputs[key] = conv.conv2d_apply(
-                    outputs[ik.single_key], m.w, m.b, stride=layer.s,
-                    padding=layer.padding, dilation=layer.d, groups=layer.g)
+                h, groups = outputs[ik.single_key], layer.g
+                if m.shard is not None:
+                    h, groups = m.shard.enter(h, groups)
+                h = conv.conv2d_apply(h, m.w, m.b, stride=layer.s, padding=layer.padding,
+                                      dilation=layer.d, groups=groups)
+                outputs[key] = h if m.shard is None else m.shard.leave(h)
             elif isinstance(layer, cfg.UpSample2D):
                 if layer.stride is not None and layer.reverse:
                     outputs[key] = simple.downsample2d(outputs[ik.single_key], layer.stride)

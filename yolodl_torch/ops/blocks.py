@@ -11,12 +11,14 @@ Counterpart of ``yolodl_tpu/ops/blocks.py`` (``tch-modules/src/
 
 Every sub-conv is a ConvBn2D with the block's ``bn`` config and the default
 Mish.  ``params``/``state`` hold one entry per sub-layer name, as the
-reference's trees do (``skip_conv``, ``repeat_{i}_first``, …).
+reference's trees do (``skip_conv``, ``repeat_{i}_first``, …).  ``shards``
+maps a sub-layer name to its tensor-parallel ``LayerShard``
+(``ops/conv.py`` ``conv_bn_apply``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -55,9 +57,10 @@ def spp_csp_convs(layer: cfg.SppCsp2D, in_c: int) -> List[Tuple[str, int, int, i
             + [(name, mid_c, mid_c, k) for name, k in _SPP_CONVS])
 
 
-def _runner(params, state, train, new_state, bn):
+def _runner(params, state, train, new_state, bn, shards):
     def run(name, inp, out_c, k):
-        out, s = conv_bn_apply(params[name], state.get(name, {}), inp, _sub(out_c, k, bn), train)
+        out, s = conv_bn_apply(params[name], state.get(name, {}), inp, _sub(out_c, k, bn), train,
+                               shard=shards.get(name) if shards else None)
         if s:
             new_state[name] = s
         return out
@@ -71,10 +74,11 @@ def dark_csp_apply(
     layer: cfg.DarkCsp2D,
     in_c: int,
     train: bool,
+    shards: Optional[Dict[str, Any]] = None,
 ) -> Tuple[Tensor, Dict[str, Any]]:
     mid_c = int(in_c * layer.c_mul)
     new_state: Dict[str, Any] = dict(state)
-    run = _runner(params, state, train, new_state, layer.bn)
+    run = _runner(params, state, train, new_state, layer.bn, shards)
 
     skip = run("skip_conv", x, mid_c, 1)
     h = run("before_repeat_conv", x, mid_c, 1)
@@ -94,10 +98,11 @@ def spp_csp_apply(
     layer: cfg.SppCsp2D,
     in_c: int,
     train: bool,
+    shards: Optional[Dict[str, Any]] = None,
 ) -> Tuple[Tensor, Dict[str, Any]]:
     mid_c = int(in_c * layer.c_mul)
     new_state: Dict[str, Any] = dict(state)
-    run = _runner(params, state, train, new_state, layer.bn)
+    run = _runner(params, state, train, new_state, layer.bn, shards)
 
     first = run("first_conv", x, mid_c, 1)
     skip = run("skip_conv", first, mid_c, 1)

@@ -54,26 +54,38 @@ def conv_bn_apply(
     x: Tensor,
     layer: cfg.ConvBn2D,
     train: bool,
+    shard=None,
 ) -> Tuple[Tensor, Dict[str, Any]]:
     """conv → activation → BN (``act_bn``) or conv → BN → activation
-    (``bn_act``, darknet)."""
+    (``bn_act``, darknet).
+
+    ``shard`` (``parallel/tp.py`` ``LayerShard``) runs the layer under
+    tensor parallelism: ``enter`` takes the full input, the conv and BN run
+    on the output channels this rank holds, BN is ``shard.batch_norm``
+    (statistics over the data axis), and ``leave`` gathers the channels."""
+    groups = layer.g
+    if shard is not None:
+        x, groups = shard.enter(x, groups)
     out = conv2d_apply(
         x, params["w"], params.get("b"),
-        stride=layer.s, padding=layer.padding, dilation=layer.d, groups=layer.g,
+        stride=layer.s, padding=layer.padding, dilation=layer.d, groups=groups,
     )
+    bn = batch_norm_apply if shard is None else shard.batch_norm
     new_state = state
     if layer.order == "act_bn":
         out = activations.apply(layer.act, out)
         if layer.bn.enabled:
-            out, bn_s = batch_norm_apply(params["bn"], state["bn"], out, train)
+            out, bn_s = bn(params["bn"], state["bn"], out, train)
             new_state = {**state, "bn": bn_s}
     elif layer.order == "bn_act":
         if layer.bn.enabled:
-            out, bn_s = batch_norm_apply(params["bn"], state["bn"], out, train)
+            out, bn_s = bn(params["bn"], state["bn"], out, train)
             new_state = {**state, "bn": bn_s}
         out = activations.apply(layer.act, out)
     else:
         raise ValueError(f"unknown conv order {layer.order!r}")
+    if shard is not None:
+        out = shard.leave(out)
     return out, new_state
 
 
@@ -83,13 +95,17 @@ def deconv_bn_apply(
     x: Tensor,
     layer: cfg.DeconvBn2D,
     train: bool,
+    shard=None,
 ) -> Tuple[Tensor, Dict[str, Any]]:
     """Transposed conv → activation → BN, with torch's padding and output
     padding: out = (in-1)*s - 2p + d*(k-1) + op + 1 (deconv_bn_2d.rs:164-165);
-    the output padding lies on the high side only."""
+    the output padding lies on the high side only.  ``shard`` as in
+    :func:`conv_bn_apply`."""
     if layer.g != 1:
         raise NotImplementedError(
             "grouped transposed conv is not supported (nor is it in the reference)")
+    if shard is not None:
+        x, _ = shard.enter(x, 1)
     out = F.conv_transpose2d(
         x, params["w"].transpose(0, 1).to(x.dtype), None, stride=layer.s,
         padding=layer.padding, output_padding=layer.op, dilation=layer.d)
@@ -98,6 +114,9 @@ def deconv_bn_apply(
     out = activations.apply(layer.act, out)
     new_state = state
     if layer.bn.enabled:
-        out, bn_s = batch_norm_apply(params["bn"], state["bn"], out, train)
+        bn = batch_norm_apply if shard is None else shard.batch_norm
+        out, bn_s = bn(params["bn"], state["bn"], out, train)
         new_state = {**state, "bn": bn_s}
+    if shard is not None:
+        out = shard.leave(out)
     return out, new_state

@@ -65,6 +65,53 @@ def batch_norm_apply(
     return (x * inv.to(x.dtype).view(view) + shift.to(x.dtype).view(view)), new_state
 
 
+def batch_norm_apply_sync(
+    params: Dict[str, Tensor],
+    state: Dict[str, Tensor],
+    x: Tensor,
+    train: bool,
+    group,
+    eps: float = DEFAULT_EPS,
+    momentum: float = DEFAULT_MOMENTUM,
+) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Batch norm whose training statistics are averaged over ``group``, the
+    ranks that hold the other rows of the batch (a ``parallel/mesh.py``
+    ``DataMesh``; None or one rank is :func:`batch_norm_apply`): each rank's
+    mean and ``E[x²]`` of its own rows, averaged over the group (equal row
+    counts), give the whole batch's statistics, so the ranks normalize as
+    one device does.  The average is ``mesh.all_reduce_mean``, whose
+    backward is the mean of the ranks' gradients.  The variance is the
+    one-pass formula clamped at 0, and the unbiased factor takes the
+    global count.  Eval mode is :func:`batch_norm_apply`."""
+    if not train or group is None or group.world_size == 1:
+        return batch_norm_apply(params, state, x, train, eps, momentum)
+    from ..parallel.mesh import all_reduce_mean
+
+    c = x.shape[1]
+    reduce_dims = [d for d in range(x.dim()) if d != 1]
+    view = [1, c] + [1] * (x.dim() - 2)
+    x32 = x.to(torch.float32)
+    stats = torch.stack([torch.mean(x32, dim=reduce_dims),
+                         torch.mean(torch.square(x32), dim=reduce_dims)])
+    mean, meansq = all_reduce_mean(stats, group)
+    var = torch.clamp(meansq - torch.square(mean), min=0.0)
+    n = (x.numel() // c) * group.world_size
+    unbiased = var * (n / max(n - 1, 1))
+    new_state = {
+        "mean": (1.0 - momentum) * state["mean"] + momentum * mean,
+        "var": (1.0 - momentum) * state["var"] + momentum * unbiased,
+    }
+    inv = torch.rsqrt(var + eps)
+    scale = params.get("scale")
+    bias = params.get("bias")
+    if scale is not None:
+        inv = inv * scale
+    shift = -mean * inv
+    if bias is not None:
+        shift = shift + bias
+    return (x * inv.to(x.dtype).view(view) + shift.to(x.dtype).view(view)), new_state
+
+
 def clamp_running_var(
     state: Dict[str, Tensor], var_min: Optional[float], var_max: Optional[float]
 ) -> Dict[str, Tensor]:

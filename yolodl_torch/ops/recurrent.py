@@ -60,16 +60,23 @@ def flatten_nhwc(x: Tensor) -> Tensor:
     return x.reshape(x.shape[0], -1)
 
 
-def dense_apply(params: Params, state: State, x: Tensor, act: str, train: bool
-                ) -> Tuple[Tensor, State]:
-    """darknet forward_connected_layer: gemm → BN (scale only) → +bias → act."""
+def dense_apply(params: Params, state: State, x: Tensor, act: str, train: bool,
+                shard=None) -> Tuple[Tensor, State]:
+    """darknet forward_connected_layer: gemm → BN (scale only) → +bias → act.
+    ``shard`` runs it on this rank's output features under tensor
+    parallelism, as ``ops/conv.py`` ``conv_bn_apply`` runs a conv."""
+    if shard is not None:
+        x, _ = shard.enter(x, 1)
     y = x @ params["w"].to(x.dtype).t()
     new_state = state
     if "bn" in params:
-        y, bn_s = batch_norm_apply(params["bn"], state["bn"], y, train)
+        bn = batch_norm_apply if shard is None else shard.batch_norm
+        y, bn_s = bn(params["bn"], state["bn"], y, train)
         new_state = {**state, "bn": bn_s}
-    y = y + params["b"].to(y.dtype)
-    return activations.apply(act, y), new_state
+    y = activations.apply(act, y + params["b"].to(y.dtype))
+    if shard is not None:
+        y = shard.leave(y)
+    return y, new_state
 
 
 def _split_time(x: Tensor, time_steps: int) -> Tensor:

@@ -5,7 +5,7 @@ Counterpart of ``yolodl_tpu/parallel/dp.py``.  The reference compiles one
 ``data`` axis, gradients ``pmean``-averaged over the replicas.  Here each
 rank is a process that runs the single-device step of ``train/loop.py`` on
 its own rows, with three collectives between the backward and the update
-(``make_train_step``'s ``reduce`` hook):
+(``make_train_step``'s ``reduce`` hook, :class:`DPHooks`):
 
 - one all-reduce of every gradient as one flat buffer, divided by the
   world size (the reference's ``pmean(grads)``);
@@ -30,7 +30,7 @@ from typing import Any, Callable
 import torch
 
 from ..models.builder import YoloModel
-from ..train.loop import TrainConfig, TrainState, make_train_step
+from ..train.loop import StepHooks, TrainConfig, TrainState, make_train_step
 from .mesh import DataMesh
 
 
@@ -56,13 +56,16 @@ def shard_batch_multiprocess(mesh: DataMesh, batch: Any) -> Any:
 
 
 @torch.no_grad()
-def _mean_over_ranks(mesh: DataMesh, tensors) -> None:
-    """Average ``tensors`` over the ranks in place, as one flat buffer."""
+def _mean_over_ranks(mesh: DataMesh, tensors, divide: bool = True) -> None:
+    """Average ``tensors`` over the ranks in place, as one flat buffer (sum
+    them when ``divide`` is false)."""
     tensors = list(tensors)
-    if not tensors:
+    if not tensors or mesh.world_size == 1 and not divide:
         return
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    mesh.all_reduce_(flat).div_(mesh.world_size)
+    mesh.all_reduce_(flat)
+    if divide:
+        flat.div_(mesh.world_size)
     offset = 0
     for t in tensors:
         n = t.numel()
@@ -100,14 +103,26 @@ def make_dp_train_step(
     data and is never returned (``dp.py:82-85``).
     """
     config = dataclasses.replace(config, return_obj_sample=False)
-    params = list(model.parameters())
+    return make_train_step(model, optimizer, config, data_format, accum,
+                           hooks=DPHooks(mesh, model))
 
-    def reduce(metrics):
-        _mean_over_ranks(mesh, [p.grad for p in params])
-        _mean_over_ranks(mesh, [b for b in model.buffers() if b.is_floating_point()])
-        return reduce_metrics(mesh, metrics)
 
-    return make_train_step(model, optimizer, config, data_format, accum, reduce=reduce)
+class DPHooks(StepHooks):
+    """The data-parallel step's ``reduce``: gradients and BN running
+    statistics averaged over the ranks, the metrics reduced."""
+
+    def __init__(self, mesh: DataMesh, model: YoloModel):
+        self.mesh, self.model = mesh, model
+
+    def reduce(self, metrics: dict) -> dict:
+        _mean_over_ranks(self.mesh, [p.grad for p in self.model.parameters()])
+        mean_buffers(self.mesh, self.model)
+        return reduce_metrics(self.mesh, metrics)
+
+
+def mean_buffers(mesh: DataMesh, model: YoloModel) -> None:
+    """The BN running statistics averaged over the ranks, in place."""
+    _mean_over_ranks(mesh, [b for b in model.buffers() if b.is_floating_point()])
 
 
 @torch.no_grad()

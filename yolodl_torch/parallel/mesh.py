@@ -16,6 +16,13 @@ SPMD program over a 1-D ``Mesh``.  The port runs one process per rank with
   replica per device.
 - :func:`launch_ranks` starts the ranks of a MultiDevice run; the
   reference needs nothing of the kind.
+- ``tp.py``'s ``make_tp_mesh`` (:54) becomes :func:`make_tp_mesh`, a
+  :class:`TPMesh` of two axes over the joined group, each a
+  :class:`DataMesh` on a group of its own; the collectives with a
+  gradient that tensor parallelism and the synchronized batch norm need
+  (:func:`copy_to_model`, :func:`gather_channels`, :func:`gather_rows`,
+  :func:`all_reduce_mean`) live here, beside ZeRO-1's reduce-scatter and
+  all-gather (:meth:`DataMesh.reduce_scatter`, :meth:`DataMesh.all_gather`).
 
 **Backend.**  NCCL when every rank has a card of its own; gloo when the
 ranks run on the CPU or share a card (NCCL refuses two ranks on one
@@ -108,8 +115,94 @@ class DataMesh:
         t = torch.tensor([int(bool(flag))], dtype=torch.int32)
         return bool(self.all_reduce_(t, "max").item())
 
+    def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Every rank's ``t`` (one shape on all), concatenated along ``dim``
+        in rank order, on ``t``'s device."""
+        import torch.distributed as dist
+
+        wire, _ = self._wire(t.contiguous())
+        out = torch.empty((self.world_size * wire.shape[0],) + tuple(wire.shape[1:]),
+                          dtype=wire.dtype, device=wire.device)
+        dist.all_gather_into_tensor(out, wire, group=self.group)
+        out = out.to(t.device)
+        if dim == 0:
+            return out
+        shape = list(t.shape)
+        shape[dim] *= self.world_size
+        return out.view(self.world_size, *t.shape).movedim(0, dim).reshape(shape)
+
+    def reduce_scatter(self, flat: torch.Tensor) -> torch.Tensor:
+        """This rank's ``1/world_size`` part of the sum over the ranks of the
+        flat ``flat`` (its length divisible by the world size), by the route
+        :func:`reduce_scatter_route` names for the backend."""
+        import torch.distributed as dist
+
+        part = flat.shape[0] // self.world_size
+        wire, _ = self._wire(flat.contiguous())
+        if reduce_scatter_route(self.backend) == "reduce_scatter_tensor":
+            out = torch.empty(part, dtype=wire.dtype, device=wire.device)
+            dist.reduce_scatter_tensor(out, wire, group=self.group)
+        else:
+            wire = wire.clone()
+            dist.all_reduce(wire, group=self.group)
+            out = wire[self.rank * part:(self.rank + 1) * part]
+        return out.to(flat.device)
+
+
+# torch versions whose gloo backend has reduce_scatter_tensor (checked on
+# 2.11 and 2.13 with f32 and bf16); NCCL has had it throughout
+_GLOO_REDUCE_SCATTER_SINCE = (2, 11)
+
+
+def reduce_scatter_route(backend: str) -> str:
+    """How :meth:`DataMesh.reduce_scatter` reduces: ``reduce_scatter_tensor``
+    on NCCL, and on gloo from torch 2.11; else ``all_reduce + slice`` (the
+    whole sum on every rank, then this rank's part).  A rule on the backend
+    and the version, printed at start-up, not a fallback on failure."""
+    if backend == "nccl":
+        return "reduce_scatter_tensor"
+    version = tuple(int(x) for x in re.findall(r"\d+", torch.__version__)[:2])
+    if version >= _GLOO_REDUCE_SCATTER_SINCE:
+        return "reduce_scatter_tensor"
+    return "all_reduce + slice"
+
+
+@dataclasses.dataclass
+class TPMesh:
+    """This process's place on a 2-D ``data × model`` mesh (the reference's
+    ``make_tp_mesh``): rank ``r`` has data index ``r // n_model`` and model
+    index ``r % n_model``, so each data replica is one contiguous block of
+    ranks.  ``data`` is this rank's data axis (the ``n_data`` ranks of its
+    model index), ``model`` its model axis (the ``n_model`` ranks of its data
+    index); each is a :class:`DataMesh` whose ``rank`` is this rank's index
+    on that axis."""
+
+    rank: int
+    world_size: int
+    n_data: int
+    n_model: int
+    device: torch.device
+    backend: str
+    reason: str
+    data: DataMesh
+    model: DataMesh
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.n_model
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.n_model
+
+    @property
+    def is_chief(self) -> bool:
+        return self.rank == 0
+
 
 _MESH: Optional[DataMesh] = None
+# every mesh made here: destroy_process_group drops their group handles
+_MESHES: List[DataMesh] = []
 
 
 def choose_backend(where: Sequence) -> tuple:
@@ -156,17 +249,28 @@ def init_process_group(device, init_method: str = "env://", rank: Optional[int] 
             raise RuntimeError("every rank has a card of its own, but this PyTorch has no NCCL")
         group = dist.new_group(backend="nccl", timeout=TIMEOUT)
     _MESH = DataMesh(dist.get_rank(), dist.get_world_size(), device, backend, group, reason)
+    _MESHES.append(_MESH)
     return _MESH
 
 
 def destroy_process_group() -> None:
-    """Leave the group :func:`init_process_group` joined."""
+    """Leave the group :func:`init_process_group` joined, and drop every
+    mesh's handle of its process groups, so that they are torn down here:
+    a gloo group still referenced when the interpreter exits is torn down
+    then, and that can abort the process ("terminate called without an
+    active exception")."""
     global _MESH
+    import gc
+
     import torch.distributed as dist
 
     if dist.is_initialized():
         dist.destroy_process_group()
+    for mesh in _MESHES:
+        mesh.group = None
+    _MESHES.clear()
     _MESH = None
+    gc.collect()
 
 
 def make_mesh(n_devices: Optional[int] = None) -> DataMesh:
@@ -183,6 +287,110 @@ def make_mesh(n_devices: Optional[int] = None) -> DataMesh:
                 f"requested {n_devices} devices but the group has {_MESH.world_size} "
                 "ranks; a rank is one device")
     return _MESH
+
+
+def make_tp_mesh(n_data: int, n_model: int) -> TPMesh:
+    """The joined group as an ``n_data × n_model`` :class:`TPMesh`; raises
+    like the reference when the group has fewer ranks (a rank is one
+    device, so it raises when it has more, too).  Every rank makes every
+    axis group, in one order, with the backend of the group's rule."""
+    import torch.distributed as dist
+
+    base = make_mesh()
+    need = n_data * n_model
+    if base.world_size != need:
+        raise ValueError(f"mesh {n_data}x{n_model} needs {need} devices, "
+                         f"have {base.world_size}")
+
+    def axis_groups(members):
+        """One group per list of ranks; this rank's (group, its index)."""
+        mine = None
+        for ranks in members:
+            group = dist.new_group(ranks, backend=base.backend, timeout=TIMEOUT)
+            if base.rank in ranks:
+                mine = group, ranks.index(base.rank)
+        return mine
+
+    model_group, m = axis_groups([list(range(d * n_model, (d + 1) * n_model))
+                                  for d in range(n_data)])
+    data_group, d = axis_groups([list(range(i, need, n_model)) for i in range(n_model)])
+
+    def axis(index, size, group):
+        _MESHES.append(DataMesh(index, size, base.device, base.backend, group, base.reason))
+        return _MESHES[-1]
+
+    return TPMesh(base.rank, base.world_size, n_data, n_model, base.device, base.backend,
+                  base.reason, axis(d, n_data, data_group), axis(m, n_model, model_group))
+
+
+# -- collectives with a gradient, for the tensor-parallel step (parallel/tp.py)
+# and the synchronized batch norm (ops/norm.py).  Each takes an axis (a
+# DataMesh) and is the identity on an axis of one rank.
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.axis.all_reduce_(grad.contiguous().clone()), None
+
+
+class _GatherAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.part, ctx.index, ctx.dim = x.shape[dim], axis.rank, dim
+        return axis.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.index * ctx.part, ctx.part).contiguous(), None, None
+
+
+class _AllReduceMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return axis.all_reduce_(x.clone()).div_(axis.world_size)
+
+    @staticmethod
+    def backward(ctx, grad):
+        axis = ctx.axis
+        return axis.all_reduce_(grad.contiguous().clone()).div_(axis.world_size), None
+
+
+def _single(axis) -> bool:
+    return axis is None or axis.world_size == 1
+
+
+def copy_to_model(x: torch.Tensor, axis) -> torch.Tensor:
+    """Megatron's f: the identity forward; the backward sums the gradient
+    over ``axis`` (each model rank's output slice gives only a partial
+    gradient of the shared input)."""
+    return x if _single(axis) else _CopyToModel.apply(x, axis)
+
+
+def gather_channels(x: torch.Tensor, axis) -> torch.Tensor:
+    """Megatron's g: every rank's channels (dim 1) of ``x`` concatenated in
+    rank order; the backward keeps this rank's slice of the gradient, with
+    no sum (the code after it is replicated, so each rank's gradient is
+    already the full one)."""
+    return x if _single(axis) else _GatherAxis.apply(x, axis, 1)
+
+
+def gather_rows(x: torch.Tensor, axis) -> torch.Tensor:
+    """Every rank's rows (dim 0) of ``x`` concatenated in rank order; the
+    backward keeps this rank's rows of the gradient, with no sum (the loss
+    after it is computed whole on every rank)."""
+    return x if _single(axis) else _GatherAxis.apply(x, axis, 0)
+
+
+def all_reduce_mean(x: torch.Tensor, axis) -> torch.Tensor:
+    """The mean of ``x`` over ``axis``; the backward is the mean of the
+    gradients (every rank's normalization reads the mean)."""
+    return x if _single(axis) else _AllReduceMean.apply(x, axis)
 
 
 def parse_device(spec, device="cuda") -> torch.device:

@@ -240,6 +240,7 @@ def make_batch_grads(
     config: TrainConfig,
     data_format: str = "NCHW",
     accum: int = 1,
+    gather: Optional[Callable] = None,
 ) -> Callable:
     """(images, boxes, classes, mask) → metrics for one logical batch; the
     gradient is left in each parameter's ``.grad`` (which must be zero on
@@ -250,6 +251,10 @@ def make_batch_grads(
     each running forward and backward before the next starts, the gradient
     averaged over them, the BN running stats threaded through them in
     order.  Loss metrics are micro-batch means; ``num_matched`` is the sum.
+
+    ``gather`` (:meth:`StepHooks.gather`) maps a micro-batch's head outputs
+    and targets to the ones the loss reads: the tensor-parallel step
+    gathers the data axis's rows there.
     """
     if accum < 1:
         raise ValueError(f"accum must be >= 1, got {accum}")
@@ -264,6 +269,8 @@ def make_batch_grads(
                 images = images.to(dtype)
             outs = model(images, data_format, train=True, output_keys=head_keys)
             raws = tuple(outs[k].to(torch.float32) for k in head_keys)
+            if gather is not None:
+                raws, gt_boxes, gt_classes, gt_mask = gather(raws, gt_boxes, gt_classes, gt_mask)
             loss, dk_metrics = darknet_detection_loss_with_metrics(
                 raws, truth_rows(gt_boxes, gt_classes, gt_mask), head_params)
             loss.backward()
@@ -275,6 +282,8 @@ def make_batch_grads(
             if dtype is not None:
                 images = images.to(dtype)
             pred = model(images, data_format, train=True)
+            if gather is not None:
+                pred, gt_boxes, gt_classes, gt_mask = gather(pred, gt_boxes, gt_classes, gt_mask)
             out, aux = yolo_loss(pred, gt_boxes, gt_classes, gt_mask, config.loss)
             out.total_loss.backward()
             return collect_step_metrics(config, out, aux, pred)
@@ -304,19 +313,56 @@ def make_batch_grads(
     return batch_grads
 
 
+def _sq_norm(grads) -> Tensor:
+    return sum(torch.sum(torch.square(g)) for g in grads)
+
+
 @torch.no_grad()
-def _clip_gradients(params, config: TrainConfig) -> None:
-    """optax.clip, then optax.clip_by_global_norm, on the ``.grad``s."""
+def _clip_gradients(params, config: TrainConfig, sq_norm: Callable = _sq_norm) -> None:
+    """optax.clip, then optax.clip_by_global_norm, on the ``.grad``s;
+    ``sq_norm`` gives the squared global norm of the list of gradients."""
     grads = [p.grad for p in params if p.grad is not None]
     if config.clip_grad_value is not None:
         for g in grads:
             g.clamp_(-config.clip_grad_value, config.clip_grad_value)
     if config.clip_grad_norm is not None:
         max_norm = config.clip_grad_norm
-        g_norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
+        g_norm = torch.sqrt(sq_norm(grads))
         trigger = g_norm < max_norm
         for g in grads:
             g.copy_(torch.where(trigger, g, (g / g_norm) * max_norm))
+
+
+class StepHooks:
+    """What a parallel step changes in the single-device step of
+    :func:`make_train_step`: ``parallel/dp.py``, ``zero.py`` and ``tp.py``
+    subclass it.  Every method's default is the single-device behaviour."""
+
+    def gather(self, outputs, gt_boxes, gt_classes, gt_mask):
+        """Before the loss: a micro-batch's head outputs (a MergedDetection,
+        or the darknet loss's raw head tensors) and its targets."""
+        return outputs, gt_boxes, gt_classes, gt_mask
+
+    def reduce(self, metrics: dict) -> dict:
+        """Right after the backward, before anything reads the gradients."""
+        return metrics
+
+    def grad_sq_norm(self, grads) -> Tensor:
+        """The squared global norm of ``grads`` (``clip_grad_norm``)."""
+        return _sq_norm(grads)
+
+    def maxima(self, values: Dict[str, Tensor]) -> Dict[str, Tensor]:
+        """The ``weights_max/*`` or ``grads_max/*`` scalars of every
+        parameter, as this process computed them."""
+        return values
+
+    def update(self, optimizer: torch.optim.Optimizer, params, config: TrainConfig,
+               lr: float) -> None:
+        """Clip the gradients, then the optimizer's step at ``lr``."""
+        _clip_gradients(params, config, self.grad_sq_norm)
+        for group in optimizer.param_groups:
+            group["lr"] = lr
+        optimizer.step()
 
 
 def make_train_step(
@@ -325,7 +371,7 @@ def make_train_step(
     config: TrainConfig,
     data_format: str = "NCHW",
     accum: int = 1,
-    reduce: Optional[Callable] = None,
+    hooks: Optional[StepHooks] = None,
 ) -> Callable:
     """The train step: (TrainState, images, gt_boxes, gt_classes, gt_mask)
     → (TrainState, metrics).
@@ -336,35 +382,32 @@ def make_train_step(
     at the scheduled lr → ``clamp_running_vars`` → step += 1 → EMA.  The
     state is updated in place and returned; the metrics are device tensors.
 
-    ``reduce`` (metrics → metrics) runs right after the backward, before
-    everything that reads the gradients: the data-parallel step
-    (``parallel/dp.py``) averages the gradients, the BN statistics and the
-    metrics over the ranks there.
+    ``hooks`` (:class:`StepHooks`) are a parallel step's: the data-parallel
+    step (``parallel/dp.py``) averages the gradients, the BN statistics and
+    the metrics over the ranks in ``reduce``; ZeRO-1 (``zero.py``) updates
+    this rank's slice of the parameters in ``update``; tensor parallelism
+    (``tp.py``) gathers the heads before the loss and reduces over its mesh.
     """
-    batch_grads = make_batch_grads(model, config, data_format, accum)
+    hooks = StepHooks() if hooks is None else hooks
+    batch_grads = make_batch_grads(model, config, data_format, accum, hooks.gather)
     schedule = make_schedule_fn(config.lr)
     params = list(model.parameters())
 
     def step(ts: TrainState, images, gt_boxes, gt_classes, gt_mask):
-        optimizer.zero_grad(set_to_none=False)
+        torch._foreach_zero_([p.grad for p in params if p.grad is not None])
         metrics = batch_grads(images, gt_boxes, gt_classes, gt_mask)
-        if reduce is not None:
-            metrics = reduce(metrics)
+        metrics = hooks.reduce(metrics)
         if config.log_weights_and_grads:  # the gradients before clipping
-            grad_maxima = _maxima("grads_max", (
-                (key, p.grad) for key, p in model.named_parameters()))
-        _clip_gradients(params, config)
-        lr = schedule(ts.step)
-        for group in optimizer.param_groups:
-            group["lr"] = lr
-        optimizer.step()
+            grad_maxima = hooks.maxima(_maxima("grads_max", (
+                (key, p.grad) for key, p in model.named_parameters())))
+        hooks.update(optimizer, params, config, schedule(ts.step))
         model.clamp_running_vars()
         ts.step += 1
         if ts.ema_params is not None:
             ema_update(ts.ema_params, dict(model.named_parameters()), ts.step,
                        config.ema_decay)
         if config.log_weights_and_grads:
-            metrics.update(param_maxima(model))
+            metrics.update(hooks.maxima(param_maxima(model)))
             metrics.update(grad_maxima)
         return ts, metrics
 
