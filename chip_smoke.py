@@ -299,7 +299,32 @@ result line:
    from rank 1, the last loading into a single-device port model whose
    forward is finite, and each B1 kernel launched once per evaluated
    batch on rank 0.
-14. card  — `nvidia-smi --query-gpu=name,power.limit` as it prints it.
+14. pp    — GPipe pipeline parallelism (ROADMAP A14c,
+   yolodl_torch/parallel/pipeline.py).  2 ranks on cuda:0 over gloo
+   (launch_ranks, pp_rank): rank 0 first takes one f32 SGD step (lr 1e-2)
+   of the flagship at 608², b16 as 2 micro-batches, through the
+   single-process make_train_step(accum=2) alone (TF32 off, cuDNN
+   deterministic), the same step on images 1 ulp up (the control), and
+   the bf16 accumulation step (default TrainConfig(), one warm-up and 3
+   timed, its peak memory); then both ranks take the same steps as a
+   2-stage pipeline (76 and 101 nodes, each rank holding its stage only):
+   the f32 loss within rel 1e-5 and every parameter and BN statistic
+   after the step within 1e-4 · max|ref| (PP_F32_TOL, with no control
+   factor: the stages run the single process's arithmetic; the control's
+   difference and the count of bit-identical tensors are printed beside
+   it), the bf16 step's ms (one
+   warm-up, 3 timed by CUDA events) with the host ms spent inside the
+   host-staged transfer calls, and each rank's peak memory beside the
+   single process's.  Then train_main with MultiDevice [cuda:0, cuda:0],
+   pipeline_parallel 2 and 2 micro-batches on the toy workspace under
+   build/chip_smoke_pp/ (removed at the end), its ranks started as
+   phase tp's: 3 steps with an evaluation at step 3, the "pipeline: 2
+   stages" line, a checkpoint a step from rank 0 and none from rank 1, the
+   last loading into a single-device port model, and each B1 kernel
+   launched once per evaluated batch on rank 0 (none on rank 1); last,
+   detect_main in this process on that checkpoint over the workspace's 8
+   images, one launch of each B1 kernel per batch of 4.
+15. card  — `nvidia-smi --query-gpu=name,power.limit` as it prints it.
 
 The line before the last lists the kernels; the last line is
 {"ok": true, "device": {...}}.  TF32 is switched off for every f32
@@ -419,6 +444,11 @@ TP_CONTROL_FACTOR = 10        # ... or 10x one process's own difference on image
 TP_TRAIN_MAIN_STEPS = 3       # train_main: 3 steps, an evaluation at step 3
 TP_EVAL_BATCH = 4             # ... of dp_workspace's 8 images: 2 evaluation batches
 TP_TIMEOUT = 900              # seconds for the ranks of each run
+PP_ROOT = os.path.join(REPO, "build", "chip_smoke_pp")  # removed at the end
+PP_ACCUM = 2                  # micro-batches a step (b16 -> 2 of 8 rows)
+PP_F32_TOL = 1e-4             # pipeline vs one process, f32: max|d| / max|ref| per tensor
+PP_TIMED = 3                  # bf16 steps timed after one warm-up step
+PP_TIMEOUT = 900              # seconds for the ranks of each run
 CLASSIFY_ROOT = os.path.join(REPO, "build", "chip_smoke_classify")  # removed at the end
 VGG_CFG = os.path.join(REPO, "cfg", "darknet", "vgg-16.cfg")
 LSTM_CFG = os.path.join(REPO, "cfg", "darknet", "lstm.train.cfg")
@@ -4198,17 +4228,17 @@ def tp_two_ranks() -> dict:
             "wall_s": wall_s}
 
 
-def tp_train_main_rank() -> None:
-    """One rank of a train_main run of phase tp: B1's counters zeroed, the
-    CLI's main with TP_ROOT/train_main.json's argv, then the counters and
-    the rank's stdout to TP_ROOT/train_main.r<rank>.json."""
+def tp_train_main_rank(root=TP_ROOT) -> None:
+    """One rank of a train_main run of phase tp or pp: B1's counters zeroed,
+    the CLI's main with ``root``/train_main.json's argv, then the counters
+    and the rank's stdout to ``root``/train_main.r<rank>.json."""
     import contextlib
 
     sys.path.insert(0, REPO)
     from yolodl_torch.cli import train_main
     from yolodl_torch.kernels import iou
 
-    with open(os.path.join(TP_ROOT, "train_main.json")) as f:
+    with open(os.path.join(root, "train_main.json")) as f:
         argv = json.load(f)
     kernels = (iou.nms_conflict_bits, iou.nms_keep_from_bits)
     for fn in kernels:
@@ -4218,15 +4248,20 @@ def tp_train_main_rank() -> None:
         train_main.main(argv)
     if torch.cuda.is_available():
         torch.cuda.synchronize()
-    write_json(os.path.join(TP_ROOT, f"train_main.r{os.environ['RANK']}.json"),
+    write_json(os.path.join(root, f"train_main.r{os.environ['RANK']}.json"),
                {"launches": {fn.__name__: fn.launches for fn in kernels},
                 "stdout": buf.getvalue()})
+    # leave as cli/_guard.py's run leaves a rank: the data threads may be
+    # inside native code, which the interpreter's teardown would abort
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
-def tp_train_main(name, training, expect) -> tuple:
+def tp_train_main(name, training, expect, root=TP_ROOT) -> tuple:
     """train_main MultiDevice [cuda:0, cuda:0] with ``training`` on the toy
-    workspace, 3 steps, an evaluation at step 3 → (summary, rank 0's B1
-    launches)."""
+    workspace under ``root``/``name``, 3 steps, an evaluation at step 3 →
+    (summary, rank 0's B1 launches, the last checkpoint)."""
     import glob
 
     from yolodl_torch.bridge import params_from_jax
@@ -4235,33 +4270,33 @@ def tp_train_main(name, training, expect) -> tuple:
     from yolodl_torch.parallel.mesh import launch_ranks
     from yolodl_torch.train.checkpoint import load_checkpoint
 
-    root = os.path.join(TP_ROOT, name)
-    config = dp_workspace(root)
+    workspace = os.path.join(root, name)
+    config = dp_workspace(workspace)
     with open(config) as f:
         raw = json.load(f)
     raw["training"].update(training)
     raw["evaluation"] = {"interval": TP_TRAIN_MAIN_STEPS, "batch_size": TP_EVAL_BATCH}
     write_json(config, raw)
-    write_json(os.path.join(TP_ROOT, "train_main.json"),
+    write_json(os.path.join(root, "train_main.json"),
                ["--config-file", config, "--max-steps", str(TP_TRAIN_MAIN_STEPS),
                 *CLI_DEVICE_ARGS])
     t0 = time.perf_counter()
     code = launch_ranks(
-        [sys.executable, "-c", "import chip_smoke; chip_smoke.tp_train_main_rank()"], 2,
-        env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO, timeout=TP_TIMEOUT)
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.tp_train_main_rank({root!r})"],
+        2, env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO, timeout=TP_TIMEOUT)
     wall_s = time.perf_counter() - t0
     ranks = []
     for r in range(2):
-        with open(os.path.join(TP_ROOT, f"train_main.r{r}.json")) as f:
+        with open(os.path.join(root, f"train_main.r{r}.json")) as f:
             ranks.append(json.load(f))
     if expect not in ranks[0]["stdout"]:
         raise AssertionError(f"{name}: no {expect!r} line:\n{ranks[0]['stdout'][-2000:]}")
-    logs = os.path.join(root, "logs")
+    logs = os.path.join(workspace, "logs")
     chief = sorted(glob.glob(os.path.join(logs, "*[0-9]", "checkpoints", "*.ckpt")))
     others = glob.glob(os.path.join(logs, "*-r1", "checkpoints", "*.ckpt"))
     if len(chief) != TP_TRAIN_MAIN_STEPS or others:
         raise AssertionError(f"{name}: checkpoints rank 0 {len(chief)}, rank 1 {len(others)}")
-    model = YoloModel(Graph.load_newslab_v1_json(os.path.join(root, "model.json5")),
+    model = YoloModel(Graph.load_newslab_v1_json(os.path.join(workspace, "model.json5")),
                       device=DEVICE)
     from yolodl_torch.bridge import params_to_jax
 
@@ -4281,7 +4316,7 @@ def tp_train_main(name, training, expect) -> tuple:
                              f"{ranks[1]['launches']}), want {batches} = evaluation batches")
     return ({"exit_code": code, "steps": TP_TRAIN_MAIN_STEPS, "rank0_checkpoints": len(chief),
              "rank1_checkpoints": 0, "evaluation_batches": batches, "launches": launches,
-             "wall_s": wall_s}, launches)
+             "wall_s": wall_s}, launches, chief[-1])
 
 
 def phase_tp() -> dict:
@@ -4296,9 +4331,9 @@ def phase_tp() -> dict:
     try:
         world_one = zero_world_one(dk.Darknet.load(CFG))
         two_ranks = tp_two_ranks()
-        tp_cli, tp_launches = tp_train_main(
+        tp_cli, tp_launches, _ = tp_train_main(
             "tensor_parallel", {"tensor_parallel": 2}, "mesh: data=1 x model=2 (tensor parallel)")
-        zero_cli, zero_launches = tp_train_main(
+        zero_cli, zero_launches, _ = tp_train_main(
             "zero_optimizer", {"zero_optimizer": True},
             "zero: optimizer state over 2 ranks, reduce-scatter by ")
     finally:
@@ -4309,6 +4344,257 @@ def phase_tp() -> dict:
           "seconds": time.perf_counter() - t0, "card": card_line()})
     return {"tp_infer_nms": two_ranks["tp_1x2"]["nms_launches"],
             "tp_train_main_eval": tp_launches, "zero_train_main_eval": zero_launches}
+
+
+def pp_rank() -> None:
+    """One rank of phase pp's 2-rank run (``python3 -c "import chip_smoke;
+    chip_smoke.pp_rank()"`` under launch_ranks' variables): rank 0 first
+    takes the single-process accumulation steps alone, then both ranks the
+    same steps as a 2-stage pipeline; results to PP_ROOT/rank<r>.json.  The
+    device and sizes come from PP_ROOT/spec.json, written by the parent."""
+    sys.path.insert(0, REPO)
+    with open(os.path.join(PP_ROOT, "spec.json")) as f:
+        spec = json.load(f)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    from yolodl_torch.bridge import params_to_jax
+    from yolodl_torch.config import darknet_cfg as dk
+    from yolodl_torch.graph.from_darknet import graph_from_darknet
+    from yolodl_torch.models import YoloModel
+    from yolodl_torch.parallel import (PipelineModel, PipelineTrainStep, init_process_group,
+                                       make_pp_mesh)
+    from yolodl_torch.parallel import pipeline
+    from yolodl_torch.parallel.mesh import destroy_process_group
+    from yolodl_torch.train import TrainConfig, make_train_step, train_init
+    from yolodl_torch.train.lr_schedule import LrScheduleConfig
+
+    world = init_process_group(spec["device"])
+    device, on_card = world.device, world.device.type == "cuda"
+    darknet = dk.Darknet.load(CFG)
+
+    def flagship():
+        return YoloModel(graph_from_darknet(darknet), device=device,
+                         generator=torch.Generator().manual_seed(0))
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+
+    def fresh():
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def flat(tree, prefix=""):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat(v, f"{prefix}{k}/") if isinstance(v, dict)
+                       else {prefix + k: np.asarray(v)})
+        return out
+
+    out = {"rank": world.rank, "backend": world.backend, "reason": world.reason}
+    sgd = TrainConfig(optimizer="sgd", lr=LrScheduleConfig(kind="constant", lr=1e-2))
+    bf16 = TrainConfig(compute_dtype="bfloat16")
+    batch = [torch.from_numpy(a).to(device)
+             for a in synthetic_batch(spec["batch"], spec["image_size"], seed=6)]
+    ref = {}
+    if world.rank == 0:  # rank 1 waits in make_pp_mesh meanwhile
+        for name, nudge in (("single", False), ("control", True)):
+            fresh()
+            model = flagship()
+            ts, opt = train_init(model, sgd)
+            t_batch = list(batch)
+            if nudge:  # the same step on images 1 ulp up: rounding alone
+                t_batch[0] = torch.nextafter(t_batch[0], torch.tensor(float("inf"), device=device))
+            _, m = make_train_step(model, opt, sgd, accum=PP_ACCUM)(ts, *t_batch)
+            params, state = params_to_jax(model.state_dict())
+            ref[name] = {"loss": float(m["total_loss"]), "tensors": flat({**params, **{
+                f"state/{k}": v for k, v in state.items()}}), "peak_gb": peak_gb()}
+            del model, opt, ts, t_batch
+        fresh()
+        model = flagship()
+        ts, opt = train_init(model, bf16)
+        step = make_train_step(model, opt, bf16, accum=PP_ACCUM)
+        step_ms = [timed_ms(lambda: step(ts, *batch), device) for _ in range(1 + PP_TIMED)][1:]
+        out["single_bf16"] = {"step_ms": step_ms, "peak_gb": peak_gb()}
+        del model, opt, ts, step
+    mesh = make_pp_mesh(2, 1)
+
+    def pipeline_step(config):
+        pp = PipelineModel(flagship(), mesh)
+        step = PipelineTrainStep(pp, config, PP_ACCUM)
+        ts = step.init_opt()
+        rows = batch if mesh.stage == 0 else [
+            torch.empty(t.shape, dtype=t.dtype, device="meta") for t in batch]
+        return pp, ts, step.step_fn(), rows
+
+    # the f32 SGD step against rank 0's single process
+    fresh()
+    pp, ts, step, rows = pipeline_step(sgd)
+    ts, m = step(ts, *rows)
+    trees = ts.merged(pp, sgd)
+    out["f32"] = {"stage_keys": [len(p.keys) for p in pp.stages],
+                  "boundary": [pp.model._pname[k] for k in pp.stages[1].in_keys],
+                  "peak_gb": peak_gb(), "loss": float(m["total_loss"])}
+    if trees is not None:
+        params, state = trees[0], trees[1]
+        mine = flat({**params, **{f"state/{k}": v for k, v in state.items()}})
+
+        def errors(tensors):
+            r = ref["single"]["tensors"]
+            return {k: float(np.abs(tensors[k] - r[k]).max()) / max(float(np.abs(r[k]).max()),
+                                                                     1e-30) for k in r}
+
+        got, control = errors(mine), errors(ref["control"]["tensors"])
+        worst, c_worst = max(got, key=got.get), max(control, key=control.get)
+        out["f32"].update(
+            single_loss=ref["single"]["loss"], control_loss=ref["control"]["loss"],
+            single_peak_gb=ref["single"]["peak_gb"], tensors=len(got), worst=worst,
+            err_of_max=got[worst], max_abs_err=float(np.abs(
+                mine[worst] - ref["single"]["tensors"][worst]).max()),
+            control_worst=c_worst, control_err_of_max=control[c_worst],
+            bit_identical=sum(e == 0 for e in got.values()))
+    del pp, ts, step, rows, trees
+
+    # the bf16 step timed, with the share of its host-staged transfers
+    log = []
+
+    def timing(fn):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            result = fn(*args, **kwargs)
+            log.append((time.perf_counter() - t0) * 1e3)
+            return result
+        return wrapped
+
+    saved = pipeline.send_tensors, pipeline.recv_tensors
+    pipeline.send_tensors, pipeline.recv_tensors = map(timing, saved)
+    try:
+        fresh()
+        pp, ts, step, rows = pipeline_step(bf16)
+        step_ms, p2p_ms, calls, losses = [], [], [], []
+        for i in range(1 + PP_TIMED):
+            log.clear()
+            ms = timed_ms(lambda: losses.append(float(step(ts, *rows)[1]["total_loss"])),
+                          device)
+            if i:
+                step_ms.append(ms)
+                p2p_ms.append(sum(log))
+                calls.append(len(log))
+    finally:
+        pipeline.send_tensors, pipeline.recv_tensors = saved
+    specs = pp.specs(pp.stages[1].in_keys, spec["batch"] // PP_ACCUM, spec["image_size"],
+                     spec["image_size"], torch.bfloat16)
+    out["bf16"] = {"step_ms": step_ms, "p2p_host_ms": p2p_ms, "p2p_calls": calls,
+                   "losses": losses, "peak_gb": peak_gb(),
+                   "boundary_mb_per_micro_batch": sum(
+                       int(np.prod(shape)) * 2 for shape, _ in specs) / 1e6,
+                   "stage_parameters": sum(p.numel() for p in pp.model.parameters())}
+    with open(os.path.join(PP_ROOT, f"rank{world.rank}.json"), "w") as f:
+        json.dump(out, f)
+    destroy_process_group()
+
+
+def pp_two_ranks() -> dict:
+    """The flagship as a 2-stage pipeline on two ranks sharing one card over
+    gloo; checks."""
+    from yolodl_torch.parallel.mesh import launch_ranks
+
+    write_json(os.path.join(PP_ROOT, "spec.json"), {
+        "device": f"{DEVICE}:0" if DEVICE == "cuda" else DEVICE, "image_size": IMAGE_SIZE,
+        "batch": TRAIN_BATCH})
+    t0 = time.perf_counter()
+    launch_ranks([sys.executable, "-c", "import chip_smoke; chip_smoke.pp_rank()"], 2,
+                 env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO, timeout=PP_TIMEOUT)
+    wall_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(PP_ROOT, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    r0, r1 = ranks
+    want = "ranks share cuda:0" if DEVICE == "cuda" else "ranks run on the CPU"
+    if r0["backend"] != "gloo" or r0["reason"] != want:
+        raise AssertionError(f"2 ranks on one card: {r0['backend']} ({r0['reason']})")
+    f32 = r0["f32"]
+    if not abs(f32["loss"] - f32["single_loss"]) <= 1e-5 * abs(f32["single_loss"]) or \
+            f32["loss"] != r1["f32"]["loss"]:
+        raise AssertionError(f"pipeline f32 loss {f32['loss']} (last stage "
+                             f"{r1['f32']['loss']}) vs single {f32['single_loss']}")
+    # the same arithmetic in another order of processes: held at
+    # PP_F32_TOL alone; the control is printed, not used
+    if not f32["err_of_max"] <= PP_F32_TOL:
+        raise AssertionError(f"pipeline f32: {f32['err_of_max']} of max at {f32['worst']} > "
+                             f"{PP_F32_TOL} (the 1-ulp control, printed only: "
+                             f"{f32['control_err_of_max']})")
+    if not all(np.isfinite(r0["bf16"]["losses"])) or r0["bf16"]["losses"] != r1["bf16"]["losses"]:
+        raise AssertionError(f"pipeline bf16 losses {r0['bf16']['losses']} "
+                             f"(last stage {r1['bf16']['losses']})")
+    return {"backend": r0["backend"], "reason": r0["reason"], "f32": f32,
+            "single_bf16": r0["single_bf16"],
+            "bf16": {"rank0": r0["bf16"], "rank1": r1["bf16"]},
+            "peak_gb": {"single_f32": f32["single_peak_gb"], "rank0_f32": f32["peak_gb"],
+                        "rank1_f32": r1["f32"]["peak_gb"],
+                        "single_bf16": r0["single_bf16"]["peak_gb"],
+                        "rank0_bf16": r0["bf16"]["peak_gb"], "rank1_bf16": r1["bf16"]["peak_gb"]},
+            "wall_s": wall_s}
+
+
+def pp_detect_main(workspace, ckpt) -> dict:
+    """detect_main on the toy workspace's model from the pipeline run's last
+    checkpoint, over its 8 images: one launch of each B1 kernel a batch."""
+    from yolodl_torch.cli import detect_main
+    from yolodl_torch.kernels import iou
+
+    out_dir = os.path.join(workspace, "detect_out")
+    config = write_json(os.path.join(workspace, "detect.json5"), {
+        "version": "0.1.0",
+        "model": {"kind": "NewslabV1", "cfg_file": os.path.join(workspace, "model.json5"),
+                  "minibatch_size": TP_EVAL_BATCH, "devices": ["cuda:0"]},
+        "input": {"kind": {"type": "Csv", "image_size": 32, "input_channels": 3,
+                           "image_dir": os.path.join(workspace, "images"),
+                           "label_file": os.path.join(workspace, "label.csv"),
+                           "classes_file": os.path.join(workspace, "classes.txt")}},
+        "preprocess": {"out_of_bound_tolerance": 1.0},
+        "output": {"output_dir": out_dir, "nms_iou_thresh": NMS_IOU,
+                   "nms_conf_thresh": CLI_CONF}})
+    kernels = (iou.nms_conflict_bits, iou.nms_keep_from_bits)
+    for fn in kernels:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    quiet(detect_main.main, ["--config-file", config, "--checkpoint", ckpt, *CLI_DEVICE_ARGS])
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    batches = -(-8 // TP_EVAL_BATCH)  # dp_workspace's 8 images
+    drawn = len(os.listdir(out_dir))
+    if (DEVICE == "cuda" and set(launches.values()) != {batches}) or drawn != 8:
+        raise AssertionError(f"detect_main on the pipeline checkpoint: launches {launches}, "
+                             f"{drawn} images, {batches} batches")
+    return {"images": drawn, "batches": batches, "launches": launches, "seconds": seconds}
+
+
+def phase_pp() -> dict:
+    """GPipe pipeline parallelism (ROADMAP A14c)."""
+    import shutil
+
+    t0 = time.perf_counter()
+    shutil.rmtree(PP_ROOT, ignore_errors=True)
+    os.makedirs(PP_ROOT)
+    try:
+        two_ranks = pp_two_ranks()
+        cli, cli_launches, ckpt = tp_train_main(
+            "pipeline_parallel", {"pipeline_parallel": 2, "accumulation_steps": PP_ACCUM},
+            f"pipeline: 2 stages (2 nodes, 4 nodes) x dp=1, {PP_ACCUM} microbatches/step",
+            root=PP_ROOT)
+        detect = pp_detect_main(os.path.join(PP_ROOT, "pipeline_parallel"), ckpt)
+    finally:
+        shutil.rmtree(PP_ROOT, ignore_errors=True)
+    emit({"phase": "pp", "model": "yolov4-csp", "image_size": IMAGE_SIZE, "batch": TRAIN_BATCH,
+          "micro_batches": PP_ACCUM, "two_ranks_one_card": two_ranks,
+          "train_main_pipeline_parallel": cli, "detect_main_on_its_checkpoint": detect,
+          "seconds": time.perf_counter() - t0, "card": card_line()})
+    return {"pp_train_main_eval": cli_launches, "pp_detect_main": detect["launches"]}
 
 
 def main() -> int:
@@ -4343,6 +4629,7 @@ def main() -> int:
     by_path.update(phase_classify(iou))
     by_path.update(phase_dp(iou))
     by_path.update(phase_tp())
+    by_path.update(phase_pp())
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -1404,3 +1404,200 @@ def first_batches(streams, n):
         out.append([next(it) for _ in range(n)])
         it.close()  # stops the stream's workers
     return out
+
+
+# -- pipeline parallelism (test_torch_pp*.py): ranks over gloo in subprocesses
+
+# One rank of a pipeline run, as ``python -c PP_RANK_SCRIPT spec.json``:
+# joins the group through the rendezvous file start_pp_ranks names (as
+# launch_ranks gives one: a port picked before the ranks bind it may be
+# taken by another test's group meanwhile); for each case builds the
+# model, loads the shared initial weights, cuts it into the case's
+# ``stages`` × ``dp`` pipeline and runs its ``mode``: "step" (the case's
+# PipelineTrainStep steps on its rows of each global batch, images and
+# targets only on stage 0, shapes on the meta device elsewhere), "forward"
+# (PipelineModel.forward of the first batch's images in eval, then train
+# mode), "roundtrip" (one single-process step on the whole model, then
+# the cut and train_main's restore of the stage's part: the stage's trees
+# against split_* of the whole ones, and merge_* of the gathered split
+# ones), "targets" (the targets' transfer to a last stage that expects
+# another dtype of the classes: its error) or "reject" (the step's batch
+# errors).  Rank
+# 0 writes the metrics, the merged state after the first and the last
+# step; the last stage's ranks write their forward outputs; every rank
+# writes the state_dict keys it holds.  It imports neither JAX nor the
+# reference.
+PP_RANK_SCRIPT = r"""
+import json, sys
+import numpy as np, torch
+torch.set_num_threads(1)
+from yolodl_torch.bridge import params_to_jax
+from yolodl_torch.graph.from_darknet import load_darknet_graph
+from yolodl_torch.models import YoloModel
+from yolodl_torch import parallel as par
+from yolodl_torch.parallel.mesh import destroy_process_group, recv_tensors
+from yolodl_torch.train import loop
+from yolodl_torch.train.lr_schedule import LrScheduleConfig
+
+spec = json.load(open(sys.argv[1]))
+world = par.init_process_group("cpu")
+data = np.load(spec["batches"])
+out = {}
+
+def flat(tree, prefix):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            flat(v, f"{prefix}{k}/")
+        else:
+            out[prefix + k] = np.asarray(v)
+
+def same(a, b):
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+    if isinstance(a, tuple):
+        return isinstance(b, tuple) and len(a) == len(b) and all(map(same, a, b))
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+def batch(i, mesh, accum):
+    rows = par.shard_batch_tp(mesh, [torch.from_numpy(data[f"{k}{i}"])
+                                     for k in ("images", "boxes", "classes", "mask")], accum)
+    if mesh.stage == 0:
+        return rows
+    return [torch.empty(t.shape, dtype=t.dtype, device="meta") for t in rows]
+
+for name, case in spec["cases"].items():
+    model = YoloModel(load_darknet_graph(case["model"]), device="cpu",
+                      remat=case.get("remat", "off"))
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in np.load(case["init"]).items()})
+    kw = dict(case["config"])
+    cfg = loop.TrainConfig(lr=LrScheduleConfig(kind="constant", lr=kw.pop("lr")), **kw)
+    mesh = par.make_pp_mesh(case["stages"], case.get("dp", 1))
+    accum, mode = case.get("accum", 1), case.get("mode", "step")
+    if mode == "roundtrip":
+        whole_ts, opt = loop.train_init(model, cfg)
+        loop.make_train_step(model, opt, cfg)(whole_ts, *(
+            torch.from_numpy(data[f"{k}0"]) for k in ("images", "boxes", "classes", "mask")))
+        params, state = params_to_jax(model.state_dict())
+        opt_tree = loop.optimizer_state_tree(whole_ts, cfg)
+        del whole_ts, opt
+    pp = par.PipelineModel(model, mesh)
+    ts = par.PipelineTrainStep(pp, cfg, accum).init_opt()
+    out[f"{name}/local/{world.rank}"] = np.asarray(json.dumps(sorted(model.state_dict())))
+    if mode == "roundtrip":
+        # train_main's restore: the stage's part of the whole trees
+        ts.step = 1
+        loop.load_optimizer_state_tree(ts, cfg, pp.split_opt_state(opt_tree))
+        s_params, s_state = params_to_jax(model.state_dict())
+        checks = {"params": same(s_params, pp.split_params(params)),
+                  "state": same(s_state, pp.split_state(state)),
+                  "opt": same(loop.optimizer_state_tree(ts, cfg), pp.split_opt_state(opt_tree))}
+        every = pp.gather((pp.split_params(params), pp.split_state(state),
+                           pp.split_opt_state(opt_tree)))
+        whole = ts.merged(pp, cfg)
+        if world.rank == 0:
+            merged = (pp.merge_params([e[0] for e in every]),
+                      pp.merge_state([e[1] for e in every]),
+                      pp.merge_opt_state([e[2] for e in every]))
+            checks.update(merged=same(merged, (params, state, opt_tree)),
+                          merged_live=same(whole, (params, state, opt_tree)))
+        out[f"{name}/checks/{world.rank}"] = np.asarray(json.dumps(checks))
+        continue
+    if mode == "forward":
+        for train in (False, True):
+            x = batch(0, mesh, 1)[0]
+            pred = pp.forward(x, train=train)
+            if pred is not None:
+                for f in ("cycxhw", "obj_logit", "class_logit"):
+                    out[f"{name}/{train}/{f}/{mesh.data_index}"] = getattr(pred, f).numpy()
+        trees = ts.merged(pp, cfg)
+        if trees is not None:
+            flat(trees[1], f"{name}/state/")
+        continue
+    if mode == "targets":
+        # a last stage that expects another dtype of the classes than
+        # stage 0 sends: its error; then it takes what stage 0 sent
+        step, rows = par.PipelineTrainStep(pp, cfg, accum), batch(0, mesh, 1)
+        if mesh.stage == case["stages"] - 1:
+            other = torch.int32 if rows[2].dtype == torch.int64 else torch.int64
+            try:
+                step._targets(rows[1], rows[2].to(other), rows[3])
+            except RuntimeError as e:
+                out[f"{name}/errors/{world.rank}"] = np.asarray(json.dumps([str(e)]))
+            recv_tensors(mesh.base, [(t.shape, t.dtype) for t in rows[1:]], mesh.rank_of(0))
+        else:
+            step._targets(*rows[1:])
+        continue
+    if mode == "reject":
+        rows, errors = batch(0, mesh, 1), []
+        for n_micro, local in ((3, rows), (2, [torch.cat([t, t[:1]]) for t in rows])):
+            try:
+                par.PipelineTrainStep(pp, cfg, n_micro)(ts, *local)
+            except ValueError as e:
+                errors.append(str(e))
+        out[f"{name}/errors/{world.rank}"] = np.asarray(json.dumps(errors))
+        continue
+    step = par.PipelineTrainStep(pp, cfg, accum).step_fn()
+    for i in range(case["steps"]):
+        ts, metrics = step(ts, *batch(i, mesh, accum))
+        if world.rank == 0:
+            for k, v in metrics.items():
+                out[f"{name}/step{i}/{k}"] = v.numpy()
+        if i == 0 and case["steps"] > 1 or i == case["steps"] - 1:
+            trees = ts.merged(pp, cfg)
+            if trees is not None:
+                which = "first" if i == 0 and case["steps"] > 1 else "final"
+                flat(trees[0], f"{name}/{which}/params/")
+                flat(trees[1], f"{name}/{which}/state/")
+np.savez(f"{spec['out']}.r{world.rank}.npz", **out)
+destroy_process_group()
+"""
+
+
+def pp_tiny(tmp_path, size=96):
+    """tests/test_pipeline.py's ``tiny_model``: yolov4-tiny at ``size``²
+    with 3 classes, written under ``tmp_path`` → (cfg path, reference model,
+    its seeded params and state, the port's model holding them, a copy of
+    its state_dict)."""
+    import re
+
+    text = open(os.path.join(REPO, "cfg", "darknet", "yolov4-tiny.cfg")).read()
+    text = re.sub(r"(?m)^width=\d+", f"width={size}", text)
+    text = re.sub(r"(?m)^height=\d+", f"height={size}", text)
+    path = tmp_path / f"tiny{size}.cfg"
+    path.write_text(text.replace("classes=80", "classes=3").replace("filters=255", "filters=24"))
+    jm = JYoloModel(j_load(str(path)), spd_stem="off")
+    params, state = seeded_trees(jm.init, 0)
+    tm = YoloModel(t_load(str(path)), device="cpu")
+    params_from_jax(params, state, model=tm)
+    return str(path), jm, params, state, tm, {k: v.clone() for k, v in tm.state_dict().items()}
+
+
+def pp_batches(n=2, size=96):
+    """``n`` seeded global batches of 4 images and 4 targets an image over
+    3 classes."""
+    rng = np.random.default_rng(3)
+    return [(rng.uniform(0, 1, (4, 3, size, size)).astype(np.float32),
+             *random_targets(4, 4, 10 + i, num_classes=3)) for i in range(n)]
+
+
+def start_pp_ranks(tmp_path, cases, batches, n):
+    """Write the batches and the spec of ``cases`` ({name: {model, init
+    state_dict, config, stages, dp?, accum?, steps?, remat?, mode?}}) under
+    ``tmp_path`` and start ``n`` ranks of PP_RANK_SCRIPT → (processes, the
+    output prefix)."""
+    keys = ("images", "boxes", "classes", "mask")
+    np.savez(tmp_path / "batches.npz",
+             **{f"{k}{i}": x for i, b in enumerate(batches) for k, x in zip(keys, b)})
+    spec_cases = {}
+    for name, case in cases.items():
+        init = tmp_path / f"{name}.init.npz"
+        np.savez(init, **{k: v.numpy() for k, v in case["init"].items()})
+        spec_cases[name] = {**{k: v for k, v in case.items() if k != "init"}, "init": str(init)}
+    spec = {"batches": str(tmp_path / "batches.npz"), "cases": spec_cases,
+            "out": str(tmp_path / "pp")}
+    (tmp_path / "spec.json").write_text(json.dumps(spec))
+    from yolodl_torch.parallel.mesh import RENDEZVOUS_ENV
+
+    procs = start_ranks(["-c", PP_RANK_SCRIPT, str(tmp_path / "spec.json")], n,
+                        env={RENDEZVOUS_ENV: f"file://{tmp_path / 'rendezvous'}"})
+    return procs, str(tmp_path / "pp")

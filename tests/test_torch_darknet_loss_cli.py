@@ -13,9 +13,9 @@ the tests/test_cli.py-style CSV set.
   size.
 - The rejections exit with the reference's messages: a NEWSLAB model, a
   cfg without [yolo]/[Gaussian_yolo] heads, and a head option combination
-  with no darknet semantics (layer named).  pipeline_parallel, which the
-  reference rejects under this loss, needs several devices, and those
-  raise ROADMAP A14 in the port first.
+  with no darknet semantics (layer named), and pipeline_parallel, which
+  the port too rejects before it starts the ranks (the production loss
+  trains the same workspace over two pipeline ranks).
 """
 
 import glob
@@ -144,12 +144,22 @@ def test_rejections_match_reference(tmp_path, case):
             }[case] in messages[1]
 
 
-def test_pipeline_parallel_needs_devices_the_port_lacks(tmp_path):
+def test_pipeline_parallel_needs_devices_the_port_lacks(tmp_path, capfd):
+    """The darknet loss under pipeline_parallel exits with the reference's
+    message before any rank starts; with the production loss the same
+    workspace starts its two pipeline ranks and trains."""
     devices = {"type": "MultiDevice", "devices": ["cuda:0", "cuda:1"]}
     ref = write_darknet_train_workspace(tmp_path / "ref", device_config=devices,
                                         pipeline_parallel=2)
-    assert "does not support pipeline_parallel" in rejection(tmp_path, j_train, ref)
+    message = rejection(tmp_path, j_train, ref)
+    assert "does not support pipeline_parallel" in message
     port = write_darknet_train_workspace(tmp_path / "port", device_config=devices,
                                          pipeline_parallel=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A14c"):
-        run(t_train, port, "--max-steps", "1", "--device", "cpu")
+    assert rejection(tmp_path, t_train, port, ("--device", "cpu")) == message
+    capfd.readouterr()
+    production = write_darknet_train_workspace(tmp_path / "production", device_config=devices,
+                                               pipeline_parallel=2, loss={"impl": "Production"})
+    run(t_train, production, "--max-steps", "1", "--device", "cpu")
+    out = capfd.readouterr().out
+    assert "dp: starting 2 ranks" in out
+    assert "pipeline: 2 stages (" in out and ") x dp=1, 1 microbatches/step" in out

@@ -83,11 +83,12 @@ def test_multi_scale_resize_matches_jax_image_resize(src, dst):
 
 
 @pytest.mark.parametrize("training,item", [
-    ({"device_config": {"type": "MultiDevice", "devices": ["cuda:0", "cuda:1"]},
-      "pipeline_parallel": 2}, "ROADMAP A14c"),
-    # MultiDevice trains data-parallel since A14a (test_torch_dp_cli.py), and
-    # with ZeRO-1 or tensor parallelism since A14b (test_torch_tp_cli.py);
-    # MultiProcess keeps the reference's config errors for these two
+    # MultiDevice trains data-parallel since A14a (test_torch_dp_cli.py), with
+    # ZeRO-1 or tensor parallelism since A14b (test_torch_tp_cli.py) and
+    # pipeline-parallel since A14c (test_torch_pp_cli.py); MultiProcess keeps
+    # the reference's config errors for these three
+    ({"device_config": {"type": "MultiProcess"}, "pipeline_parallel": 2},
+     "pipeline_parallel is single-controller only"),
     ({"device_config": {"type": "MultiProcess"}, "zero_optimizer": True},
      "zero_optimizer is single-controller only"),
     ({"device_config": {"type": "MultiProcess"}, "tensor_parallel": 2},

@@ -52,6 +52,30 @@ _USER_ERRORS = (
 
 
 def run(main) -> None:
+    """``main()`` behind the error boundary, exiting with its code.  A rank
+    of a multi-process run (RANK and WORLD_SIZE set, as ``launch_ranks``
+    and torchrun set them) leaves through ``os._exit`` once its streams
+    are flushed: the training data's daemon threads may still be inside
+    native code, and the interpreter's teardown would end such a thread
+    in a C++ frame that cannot unwind ("terminate called without an
+    active exception", the process killed by SIGABRT)."""
+    from ..parallel.mesh import rank_environment
+
+    try:
+        _run(main)
+    except SystemExit as e:
+        if rank_environment() is None:
+            raise
+        code = e.code
+        if code is not None and not isinstance(code, int):
+            print(code, file=sys.stderr)  # what the interpreter would print
+            code = 1
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(code or 0)
+
+
+def _run(main) -> None:
     try:
         rc = main()
         # some mains return their result object for tests; only ints are

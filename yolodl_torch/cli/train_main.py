@@ -31,8 +31,8 @@ reference, a multi-step call (``steps_per_call``) or
 Data parallelism (``parallel/``), one process per rank:
 
 - ``device_config`` MultiDevice with N devices: this process starts N
-  ranks of itself (``parallel/mesh.py`` ``launch_ranks``, a rendezvous on
-  127.0.0.1 at a free port), rank i on the config's i-th device (every
+  ranks of itself (``parallel/mesh.py`` ``launch_ranks``, a rendezvous
+  file of the launch), rank i on the config's i-th device (every
   rank on the CPU with ``--device cpu``), passes SIGINT and SIGTERM on to
   them, and exits with the first failed rank's error line.
 - MultiProcess: this process is one rank, joined from the environment
@@ -60,8 +60,18 @@ and writes the full model in the standard layout.  As in the reference,
 ``zero_optimizer`` is ignored under ``tensor_parallel``, and MultiProcess
 rejects both.
 
-Not ported, raising ``NotImplementedError`` naming its ROADMAP item:
-pipeline parallelism (A14c).
+``training.pipeline_parallel S`` trains through ``parallel/pipeline.py``
+(GPipe, ``accumulation_steps`` micro-batches a step) on ``S`` stages × ``dp
+= N/S`` ranks: rank r holds stage ``r // dp`` at data index ``r % dp``.  It
+draws the whole model's parameters and cuts them to that stage's before it
+makes the optimizer state or restores a checkpoint, which it then reads
+for that stage's tensors only.  Stage 0 of data index d streams ``records[d::dp]`` with
+``seed=d`` and ``batch_size / dp`` rows and sends the targets to the last
+stage; the other stages read no data.  The losses reach rank 0 from the
+last stage once a step.  At the steps that evaluate, infer or save, every
+rank joins the merge of the stages' trees onto rank 0, which writes the
+checkpoint in the standard layout and evaluates a whole model built for
+that step (with the reference's warning at start-up).
 """
 
 from __future__ import annotations
@@ -128,16 +138,6 @@ def _resolve_auto_loss_options(config, graph):
     if not updates:
         return config
     return _dc.replace(config, loss=_dc.replace(loss, **updates))
-
-
-def _not_ported_parallelism(config) -> None:
-    """The reference's branch for pipeline parallelism
-    (yolodl_tpu/cli/train_main.py:482-513: ROADMAP A14c)."""
-    if config.pipeline_parallel > 1:
-        raise NotImplementedError(
-            f"training.pipeline_parallel {config.pipeline_parallel}: not ported to "
-            "yolodl_torch yet (ROADMAP A14c); train data-parallel (MultiDevice or "
-            "MultiProcess) or tensor-parallel instead")
 
 
 def _join_ranks(config, args):
@@ -228,7 +228,19 @@ def main(argv=None):
 
     config = TrainAppConfig.load(args.config_file)
     base_dir = os.path.dirname(os.path.abspath(args.config_file))
-    _not_ported_parallelism(config)
+    # the config's loss errors, before any rank starts
+    if config.loss_impl not in ("production", "darknet"):
+        raise SystemExit(
+            f"unknown training.loss.impl {config.loss_impl!r} "
+            "(expected Production or Darknet)")
+    if config.loss_impl == "darknet":
+        if config.model_kind != "darknet":
+            raise SystemExit(
+                "training.loss.impl Darknet needs a darknet model cfg")
+        if config.pipeline_parallel > 1:
+            raise SystemExit(
+                "training.loss.impl Darknet does not support "
+                "pipeline_parallel (single-device, DP, TP, ZeRO all work)")
 
     # data parallelism: a MultiDevice parent starts one rank per device and
     # waits; a rank (MultiDevice or MultiProcess) joins its group before
@@ -258,7 +270,7 @@ def main(argv=None):
                 f"device_config lists {config.n_devices} devices but "
                 f"{mesh.world_size} ranks joined")
         config = dataclasses.replace(config, n_devices=mesh.world_size)
-        replicas = config.n_devices // config.tensor_parallel
+        replicas = config.n_devices // (config.tensor_parallel * config.pipeline_parallel)
         if config.batch_size % (replicas * config.accumulation_steps):
             raise SystemExit(
                 f"training.batch_size ({config.batch_size}) must be "
@@ -294,13 +306,23 @@ def main(argv=None):
         if is_chief:
             print(f"mesh: data={tp_mesh.n_data} x model={tp_mesh.n_model} "
                   "(tensor parallel)", flush=True)
+    # pipeline parallelism (yolodl_tpu/cli/train_main.py:482-513)
+    use_pp = config.pipeline_parallel > 1
+    pp_mesh = None
+    if use_pp:
+        from ..parallel.mesh import make_pp_mesh
+
+        pp_mesh = make_pp_mesh(config.pipeline_parallel,
+                               config.n_devices // config.pipeline_parallel)
     if use_zero and is_chief:
         from ..parallel.mesh import reduce_scatter_route
 
         print(f"zero: optimizer state over {world} ranks, reduce-scatter by "
               f"{reduce_scatter_route(mesh.backend)} ({mesh.backend})", flush=True)
-    # the data streams: one per data index (a TP model group streams one)
+    # the data streams: one per data index (a TP model group streams one, a
+    # pipeline's stage 0 of each data index reads it)
     data_rank, data_world = ((tp_mesh.data_index, tp_mesh.n_data) if use_tp
+                             else (pp_mesh.data_index, pp_mesh.n_data) if use_pp
                              else (rank, world))
 
     # timestamped run dir + config copy (main.rs:34-51); other ranks get a
@@ -492,21 +514,12 @@ def main(argv=None):
 
         stream_cfg.debug_hook = debug_hook
 
-    if config.loss_impl not in ("production", "darknet"):
-        raise SystemExit(
-            f"unknown training.loss.impl {config.loss_impl!r} "
-            "(expected Production or Darknet)")
     # training.loss.impl=Darknet: the step trains the raw head-conv outputs
     # (graph.detect_head_input_keys) through the darknet-exact loss, with
     # per-head params from the model cfg's [yolo]/[Gaussian_yolo] sections
     darknet_loss_spec = None
     dk_heads = []
     if config.loss_impl == "darknet":
-        # (the reference also rejects pipeline_parallel here, which stops
-        # at _not_ported_parallelism first)
-        if config.model_kind != "darknet":
-            raise SystemExit(
-                "training.loss.impl Darknet needs a darknet model cfg")
         from ..config import darknet_cfg as _dkl
         from ..loss.darknet_loss import head_params_from_darknet
 
@@ -547,11 +560,28 @@ def main(argv=None):
         debug_stat=config.logging.enable_debug_stat,
         compute_dtype={"float32": None}.get(config.precision, config.precision),
     )
+    head_infos = None
+    if config.logging.enable_images:
+        # static per-head layout for the objectness heatmap, from the whole
+        # model (a pipeline stage holds only its own nodes)
+        with torch.no_grad():
+            head_infos = model(torch.zeros((1, 3, size, size), device=device)).infos
+    pp_model = None
     if use_zero:
         from ..parallel.zero import (load_zero_optimizer_state_tree, place_zero_state,
                                      zero_init, zero_optimizer_state_tree)
 
         ts, optimizer = zero_init(model, train_cfg, mesh)
+    elif use_pp:
+        from ..parallel.pipeline import PipelineModel, PipelineTrainStep
+
+        # cut ``model`` to this rank's stage before it has optimizer state
+        # and before a checkpoint is restored into it: the restore then
+        # reads only the stage's tensors
+        pp_model = PipelineModel(model, pp_mesh)
+        ts = PipelineTrainStep(pp_model, train_cfg,
+                               n_micro=config.accumulation_steps).init_opt()
+        optimizer = ts.optimizer
     else:
         ts, optimizer = train_init(model, train_cfg)
 
@@ -608,9 +638,24 @@ def main(argv=None):
         from ..parallel.dp import (make_dp_train_step, replicate_state,
                                    shard_batch_multiprocess)
 
+    if mesh is not None and not use_pp:
         # every rank starts from rank 0's state (restored or drawn); ZeRO
-        # keeps this rank's slice of the optimizer state, TP its shards
+        # keeps this rank's slice of the optimizer state, TP its shards.
+        # Under pipeline parallelism every rank drew or restored its own
+        # stage's part of the same state.
         ts = (place_zero_state if use_zero else replicate_state)(mesh, ts)
+    if use_pp:
+        if is_chief:
+            print(f"pipeline: {config.pipeline_parallel} stages "
+                  f"({', '.join(str(len(p.keys)) + ' nodes' for p in pp_model.stages)})"
+                  f" x dp={pp_mesh.n_data}, {accum} microbatches/step")
+            print(f"pipeline: boundary tensors over {pp_mesh.route} ({mesh.reason})",
+                  flush=True)
+            if config.eval_interval or config.logging.enable_inference:
+                print("warning: in-training evaluation/inference merges the "
+                      "full model onto the default device; if the model needs "
+                      "pipeline_parallel to fit in one chip's HBM, run eval "
+                      "offline instead (eval CLI on a bigger host)")
     if use_tp:
         from ..parallel.tp import (check_model_group_batch, gather_train_state,
                                    make_tp_train_step, place_tp_state)
@@ -622,9 +667,13 @@ def main(argv=None):
         full_ts = gather_train_state(tp_mesh, ts, train_cfg)
     if use_zero:
         from ..parallel.zero import make_zero_train_step
-    eval_model = full_ts.model if full_ts is not None else model
+    # under pipeline parallelism rank 0 builds a whole model at each step
+    # that evaluates or infers (eval_net)
+    eval_model = full_ts.model if full_ts is not None else None if use_pp else model
 
     def train_step(cfg):
+        if use_pp:
+            return PipelineTrainStep(pp_model, cfg, n_micro=accum).step_fn()
         if use_tp:
             return make_tp_train_step(model, optimizer, cfg, tp_mesh, accum=accum)
         if use_zero:
@@ -678,11 +727,12 @@ def main(argv=None):
             (1.0, 0.6, 0.1), (0.8, 0.2, 1.0), (0.1, 0.9, 0.9),
         ]
 
-        def infer_one(step, image_chw, gt_boxes, gt_mask):
-            """Run inference on one training image and log the overlay:
-            GT yellow, predictions per-class colors (detect-CLI taxonomy)."""
+        def infer_one(net, step, image_chw, gt_boxes, gt_mask):
+            """Run inference of ``net`` on one training image and log the
+            overlay: GT yellow, predictions per-class colors (detect-CLI
+            taxonomy)."""
             with torch.no_grad():
-                pred = eval_model(torch.from_numpy(np.asarray(image_chw)[None]).to(device))
+                pred = net(torch.from_numpy(np.asarray(image_chw)[None]).to(device))
                 nms = non_max_suppression(
                     pred,
                     iou_threshold=config.nms_iou_thresh,
@@ -736,10 +786,7 @@ def main(argv=None):
             precision=config.precision,
         )
 
-    if config.logging.enable_images:
-        # static per-head layout for the objectness heatmap
-        with torch.no_grad():
-            last_batch["infos"] = model(torch.zeros((1, 3, size, size), device=device)).infos
+    last_batch["infos"] = head_infos
     batch_rate = RateCounter()
     record_rate = RateCounter()
 
@@ -747,10 +794,14 @@ def main(argv=None):
     # rescaling is image-only
     ms_sizes = list(config.multi_scale_sizes)
 
-    def maybe_rescale(images, step):
+    def size_at(step):
+        """The training size of the step after ``step`` steps."""
         if not ms_sizes:
-            return images
-        target = ms_sizes[(step // config.multi_scale_interval) % len(ms_sizes)]
+            return size
+        return ms_sizes[(step // config.multi_scale_interval) % len(ms_sizes)]
+
+    def maybe_rescale(images, step):
+        target = size_at(step)
         if images.shape[-1] == target:
             return images
         return resize_images(images, target)
@@ -802,12 +853,29 @@ def main(argv=None):
             gather_train_state(tp_mesh, ts, train_cfg, into=full_ts)
         if use_zero:
             synced["opt"] = zero_optimizer_state_tree(ts, train_cfg, mesh)
+        if use_pp:
+            synced["trees"] = ts.merged(pp_model, train_cfg)
+
+    def eval_net():
+        """The whole model rank 0 evaluates and infers with at a synced
+        step: under pipeline parallelism one built from the merged trees,
+        dropped at the end of the step."""
+        if not use_pp:
+            return eval_model
+        if synced.get("net") is None:
+            params, state, _ = synced["trees"]
+            synced["net"] = YoloModel(graph, device=device)
+            params_from_jax(params, state, model=synced["net"])
+        return synced["net"]
 
     def save_checkpoint(step, total):
         sync_state(step)
         if not is_chief:  # rank 0 writes the (gathered) state
             return
-        params, state, opt, ema = host_trees(full_ts if use_tp else ts, synced["opt"])
+        if use_pp:
+            (params, state, opt), ema = synced["trees"], None
+        else:
+            params, state, opt, ema = host_trees(full_ts if use_tp else ts, synced["opt"])
         saver.save(ckpt_dir, step, total, params, state, opt, ema_params=ema)
 
     def stop_requested():
@@ -815,13 +883,9 @@ def main(argv=None):
         here = stop_signal["num"] is not None
         return mesh.agree(here) if mesh is not None else here
 
-    def handle_step(step, metrics, index=None, final=True, window=1):
-        """Per-optimizer-step host work: finite check, TB logging, rates,
-        checkpoints.  Returns True when training should stop.  With
-        steps_per_call > 1 only the last step of a window has ``final``:
-        the model then matches ``step``, so checkpoints and stops happen
-        there only."""
-        pick = (lambda v: v[index]) if index is not None else (lambda v: v)
+    def log_step(step, metrics, pick, index):
+        """The finite check, TensorBoard logging and rates of one step's
+        metrics → its total loss."""
         total = float(pick(metrics["total_loss"]))
         if not np.isfinite(total):
             raise RuntimeError(f"non-finite total loss at step {step}: {total}")
@@ -876,23 +940,36 @@ def main(argv=None):
                 f"step {step}  loss {total:.5f}  "
                 f"{batch_rate.rate():.2f} batches/s  {record_rate.rate():.1f} records/s"
             )
+        return total
+
+    def handle_step(step, metrics, index=None, final=True, window=1):
+        """Per-optimizer-step host work: finite check, TB logging, rates,
+        checkpoints.  Returns True when training should stop.  With
+        steps_per_call > 1 only the last step of a window has ``final``:
+        the model then matches ``step``, so checkpoints and stops happen
+        there only."""
+        pick = (lambda v: v[index]) if index is not None else (lambda v: v)
+        if "total_loss" in metrics:
+            total = log_step(step, metrics, pick, index)
+        else:  # a middle pipeline stage, which has no loss
+            total = None
         if not final:
             return False
         # decided alike on every rank: each joins sync_state at these steps
         infer_due = (config.logging.enable_inference
-                     and (step <= window or step % 200 < window)
-                     and last_batch.get("images") is not None
-                     and last_batch.get("gt") is not None)
+                     and (step <= window or step % 200 < window))
         eval_due = bool(config.eval_interval) and (
             (step // config.eval_interval) > ((step - window) // config.eval_interval))
         if infer_due or eval_due:
             sync_state(step)
-        if infer_due and infer_one is not None:
+        if (infer_due and infer_one is not None and last_batch.get("images") is not None
+                and last_batch.get("gt") is not None):
             imgs = last_batch["images"]
             gt_boxes, gt_mask = last_batch["gt"]
-            infer_one(step, _host(imgs[0]), gt_boxes[0], gt_mask[0])
+            infer_one(eval_net(), step, _host(imgs[0]), gt_boxes[0], gt_mask[0])
         saved = False
         if eval_due and evaluator is not None:
+            evaluator.model = eval_net()
             report = evaluator()
             logger.log_scalars(step, {
                 "val/mAP@0.5": report["mAP@0.5"],
@@ -912,6 +989,10 @@ def main(argv=None):
                     _json.dump({"step": step,
                                 "mAP@0.5": report["mAP@0.5"],
                                 "mAP@0.5:0.95": report["mAP@0.5:0.95"]}, bf)
+        if use_pp:  # the whole model lives for this step only
+            synced["net"] = None
+            if evaluator is not None:
+                evaluator.model = None
         save = config.checkpoint.save_steps
         if save and not saved and (step // save) > ((step - window) // save):
             save_checkpoint(step, total)
@@ -942,7 +1023,19 @@ def main(argv=None):
     pending = []
     host_step = first_step = ts.step
     # multi-step calls stack HOST arrays into one k-step upload
-    if scan_k > 1:
+    if use_pp and not pp_model.is_first:
+        def placeholders():
+            """The later stages read no data: each step takes the shapes of
+            this data index's batch, on the meta device."""
+            while True:
+                n, at, gt = local_batch, size_at(host_step), stream_cfg.max_gt
+                specs = (((n, 3, at, at), torch.float32), ((n, gt, 4), torch.float32),
+                         ((n, gt), torch.int32), ((n, gt), torch.bool))
+                yield None, tuple(torch.empty(shape, dtype=dtype, device="meta")
+                                  for shape, dtype in specs)
+
+        source = placeholders()
+    elif scan_k > 1:
         source = ((rec, None) for rec in iter(stream))
     elif stream_cfg.defer_images:
         # the augment program runs on the device and yields device-resident
@@ -999,9 +1092,10 @@ def main(argv=None):
                     mesh, (images, gt_boxes, gt_classes, gt_mask))
             if use_tp and host_step == first_step:  # a model group streams alike
                 check_model_group_batch(tp_mesh, (images, gt_boxes, gt_classes, gt_mask))
-            images = maybe_rescale(images, host_step)
-            last_batch["images"] = record.images
-            last_batch["gt"] = (record.boxes, record.mask)
+            if record is not None:
+                images = maybe_rescale(images, host_step)
+                last_batch["images"] = record.images
+                last_batch["gt"] = (record.boxes, record.mask)
             ts, metrics = step_for_size(int(images.shape[-1]))(
                 ts, images, gt_boxes, gt_classes, gt_mask)
             metrics = host_metrics(metrics)  # one transfer per step

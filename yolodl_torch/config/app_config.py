@@ -17,8 +17,9 @@ fields, defaults, parsers and error messages.  JSON5 is read by
 configs are the port's own; :func:`compute_dtype_of` gives a torch dtype.
 A MultiDevice config trains one rank per listed device and a MultiProcess
 config joins ranks started elsewhere (``parallel/mesh.py``); the device
-list itself is read by :func:`training_devices`.  Tensor parallelism and
-ZeRO-1 are not ported (ROADMAP A14b), nor the pipeline model (A14c).
+list itself is read by :func:`training_devices`; ``train_main`` runs its
+``zero_optimizer``, ``tensor_parallel`` and ``pipeline_parallel`` through
+``parallel/zero.py``, ``tp.py`` and ``pipeline.py``.
 """
 
 from __future__ import annotations

@@ -136,6 +136,21 @@ class Graph:
 
     # -- queries ------------------------------------------------------------
 
+    def shapes_at(self, batch: int, height: int, width: int) -> Dict[int, ShapeOut]:
+        """Every node's output shape for an input of ``batch × C × height ×
+        width``: the shape inference run again with the placeholder Input's
+        batch and spatial sizes set (a multi-scale size, or a graph whose
+        Input leaves them unknown)."""
+        shapes: Dict[int, ShapeOut] = {}
+        for key in self.order:
+            node = self.nodes[key]
+            layer = node.config
+            if isinstance(layer, cfg.Input) and node.input_keys.kind == "placeholder":
+                layer = dataclasses.replace(
+                    layer, shape=Shape([batch, layer.shape[1], height, width]))
+            shapes[key] = _infer_shape(layer, node.input_keys, shapes, node.path)
+        return shapes
+
     def input_nodes(self) -> List[Node]:
         return [n for n in self.nodes.values() if isinstance(n.config, cfg.Input)]
 

@@ -453,9 +453,11 @@ class GraphModel(nn.Module):
             nodes = self._node_sets[cache_key] = frozenset(seen)
         return nodes
 
-    def forward(self, x: Tensor, data_format: str = "NCHW", *, train: bool = False,
+    def forward(self, x: Optional[Tensor], data_format: str = "NCHW", *, train: bool = False,
                 output_keys: Optional[Tuple[int, ...]] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                node_overrides: Optional[Dict[int, Tensor]] = None,
+                node_subset: Optional[frozenset] = None):
         """Forward → the graph output, a MergedDetection for YOLO.
 
         ``train=False`` normalizes BN with the running statistics.
@@ -474,16 +476,29 @@ class GraphModel(nn.Module):
 
         ``generator`` (the reference's ``rng``) draws the Dropout masks when
         ``train=True``; without it Dropout passes its input through.
+
+        ``node_subset`` and ``node_overrides`` (the reference's) run a
+        pipeline stage (``parallel/pipeline.py``): only the nodes of
+        ``node_subset``, with the outputs of nodes outside it that they read
+        taken from ``node_overrides`` (``{key: NCHW tensor}``); ``x`` may be
+        None when the Input node is not in the subset.  With
+        ``output_keys`` an override can be an output too (a tensor that
+        passes through the stage), returned as it was given.
         """
-        run = None if output_keys is None else self._nodes_for(tuple(output_keys), train)
-        if data_format == "NHWC":
+        if node_subset is not None:
+            run = node_subset
+        elif output_keys is not None:
+            run = self._nodes_for(tuple(output_keys), train)
+        else:
+            run = None
+        if x is not None and data_format == "NHWC":
             x = x.permute(0, 3, 1, 2)
-        elif data_format != "NCHW":
+        elif data_format not in ("NCHW", "NHWC"):
             raise ValueError(f"unknown data_format {data_format!r}")
 
-        outputs: Dict[int, object] = {}
+        outputs: Dict[int, object] = dict(node_overrides or {})
         for key in self.graph.order:
-            if run is not None and key not in run:
+            if key in outputs or (run is not None and key not in run):
                 continue
             node = self.graph.nodes[key]
             layer = node.config
@@ -615,7 +630,8 @@ class GraphModel(nn.Module):
         deeper than it keeps them (builder.py:752-787)."""
         for key in self.graph.order:
             layer = self.graph.nodes[key].config
-            if not isinstance(layer, _BN_KINDS):
+            # a pipeline stage's model holds only its own nodes
+            if not isinstance(layer, _BN_KINDS) or module_key(self._pname[key]) not in self.layers:
                 continue
             bn_cfg = layer.bn
             if bn_cfg.var_min is None and bn_cfg.var_max is None:

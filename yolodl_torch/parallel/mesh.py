@@ -55,6 +55,7 @@ import torch
 
 TIMEOUT = datetime.timedelta(minutes=30)
 ERROR_FILE_ENV = "YDL_RANK_ERROR_FILE"
+RENDEZVOUS_ENV = "YDL_RENDEZVOUS"
 
 
 class RankFailed(RuntimeError):
@@ -223,10 +224,12 @@ def init_process_group(device, init_method: str = "env://", rank: Optional[int] 
                        world_size: Optional[int] = None) -> DataMesh:
     """Join the data-parallel group and return this rank's :class:`DataMesh`.
 
-    ``init_method`` ``env://`` reads RANK, WORLD_SIZE, MASTER_ADDR and
-    MASTER_PORT (torchrun's variables); ``tcp://host:port`` takes ``rank``
-    and ``world_size``.  ``device`` is this rank's device; a card becomes
-    the process's current device.
+    ``init_method`` ``env://`` reads RANK and WORLD_SIZE, and meets the
+    other ranks through the file that YDL_RENDEZVOUS names (``file://…``,
+    set by :func:`launch_ranks`) or else at MASTER_ADDR and MASTER_PORT
+    (torchrun's variables); ``tcp://host:port`` takes ``rank`` and
+    ``world_size``.  ``device`` is this rank's device; a card becomes the
+    process's current device.
     """
     global _MESH
     import torch.distributed as dist
@@ -238,6 +241,9 @@ def init_process_group(device, init_method: str = "env://", rank: Optional[int] 
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         torch.cuda.set_device(device)
+    if init_method == "env://" and os.environ.get(RENDEZVOUS_ENV):
+        init_method = os.environ[RENDEZVOUS_ENV]
+        rank, world_size = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     kwargs = {} if rank is None else dict(rank=rank, world_size=world_size)
     dist.init_process_group("gloo", init_method=init_method, timeout=TIMEOUT, **kwargs)
     where = [None] * dist.get_world_size()
@@ -289,38 +295,120 @@ def make_mesh(n_devices: Optional[int] = None) -> DataMesh:
     return _MESH
 
 
+def _axis(base: DataMesh, members: List[List[int]]) -> DataMesh:
+    """One group per list of ranks, made by every rank in one order with
+    the backend of the group's rule → this rank's, as a :class:`DataMesh`
+    whose ``rank`` is this rank's index in its list."""
+    import torch.distributed as dist
+
+    mine = None
+    for ranks in members:
+        group = dist.new_group(ranks, backend=base.backend, timeout=TIMEOUT)
+        if base.rank in ranks:
+            mine = DataMesh(ranks.index(base.rank), len(ranks), base.device, base.backend,
+                            group, base.reason)
+    _MESHES.append(mine)
+    return mine
+
+
 def make_tp_mesh(n_data: int, n_model: int) -> TPMesh:
     """The joined group as an ``n_data × n_model`` :class:`TPMesh`; raises
     like the reference when the group has fewer ranks (a rank is one
-    device, so it raises when it has more, too).  Every rank makes every
-    axis group, in one order, with the backend of the group's rule."""
-    import torch.distributed as dist
-
+    device, so it raises when it has more, too)."""
     base = make_mesh()
     need = n_data * n_model
     if base.world_size != need:
         raise ValueError(f"mesh {n_data}x{n_model} needs {need} devices, "
                          f"have {base.world_size}")
-
-    def axis_groups(members):
-        """One group per list of ranks; this rank's (group, its index)."""
-        mine = None
-        for ranks in members:
-            group = dist.new_group(ranks, backend=base.backend, timeout=TIMEOUT)
-            if base.rank in ranks:
-                mine = group, ranks.index(base.rank)
-        return mine
-
-    model_group, m = axis_groups([list(range(d * n_model, (d + 1) * n_model))
-                                  for d in range(n_data)])
-    data_group, d = axis_groups([list(range(i, need, n_model)) for i in range(n_model)])
-
-    def axis(index, size, group):
-        _MESHES.append(DataMesh(index, size, base.device, base.backend, group, base.reason))
-        return _MESHES[-1]
-
+    model = _axis(base, [list(range(d * n_model, (d + 1) * n_model)) for d in range(n_data)])
+    data = _axis(base, [list(range(i, need, n_model)) for i in range(n_model)])
     return TPMesh(base.rank, base.world_size, n_data, n_model, base.device, base.backend,
-                  base.reason, axis(d, n_data, data_group), axis(m, n_model, model_group))
+                  base.reason, data, model)
+
+
+@dataclasses.dataclass
+class PPMesh:
+    """This process's place in an ``n_stages × n_data`` pipeline (the
+    reference's device grouping, ``pipeline.py:205``): rank ``r`` holds
+    stage ``r // n_data`` at data index ``r % n_data``, so each stage's
+    data group is one contiguous block of ranks.  ``data`` is that group as
+    a :class:`DataMesh` (its ``rank`` is this rank's data index), the axis
+    the synchronized batch norm and :func:`gather_rows` take; ``base`` is
+    the whole group, whose backend carries the boundary tensors between
+    stages (:func:`send_tensors`, :func:`recv_tensors`)."""
+
+    n_stages: int
+    n_data: int
+    base: DataMesh
+    data: DataMesh
+
+    @property
+    def rank(self) -> int:
+        return self.base.rank
+
+    @property
+    def device(self) -> torch.device:
+        return self.base.device
+
+    @property
+    def stage(self) -> int:
+        return self.base.rank // self.n_data
+
+    @property
+    def data_index(self) -> int:
+        return self.base.rank % self.n_data
+
+    @property
+    def is_chief(self) -> bool:
+        return self.base.rank == 0
+
+    def rank_of(self, stage: int) -> int:
+        """The rank of ``stage`` at this rank's data index."""
+        return stage * self.n_data + self.data_index
+
+    @property
+    def route(self) -> str:
+        """How boundary tensors travel between stages: a rule on the
+        backend, printed at start-up."""
+        if self.base.backend == "nccl":
+            return "nccl, tensors on the card"
+        return "gloo, staged through host memory"
+
+
+def make_pp_mesh(n_stages: int, n_data: int = 1) -> PPMesh:
+    """The joined group as an ``n_stages × n_data`` :class:`PPMesh`; raises
+    like the reference when the group has fewer ranks (and, a rank being
+    one device, when it has more)."""
+    base = make_mesh()
+    need = n_stages * n_data
+    if base.world_size != need:
+        raise ValueError(f"{n_stages} stages x dp={n_data} need {need} devices, "
+                         f"have {base.world_size}")
+    data = _axis(base, [list(range(s * n_data, (s + 1) * n_data)) for s in range(n_stages)])
+    return PPMesh(n_stages, n_data, base, data)
+
+
+def send_tensors(mesh: DataMesh, tensors: Sequence[torch.Tensor], dst: int) -> None:
+    """Send ``tensors`` to rank ``dst`` of ``mesh``'s group, in order, and
+    wait until they are sent: on the card under NCCL, through a host copy
+    under gloo."""
+    import torch.distributed as dist
+
+    wires = [mesh._wire(t.detach().contiguous())[0] for t in tensors]
+    for work in [dist.isend(w, dst, group=mesh.group) for w in wires]:
+        work.wait()
+
+
+def recv_tensors(mesh: DataMesh, specs: Sequence[tuple], src: int) -> List[torch.Tensor]:
+    """Receive one tensor per ``(shape, dtype)`` of ``specs`` from rank
+    ``src``, in order, into tensors allocated here → on ``mesh.device``."""
+    import torch.distributed as dist
+
+    where = mesh.device if mesh.backend == "nccl" else torch.device("cpu")
+    wires = [torch.empty(shape, dtype=dtype, device=where) for shape, dtype in specs]
+    for work in [dist.irecv(w, src, group=mesh.group) for w in wires]:
+        work.wait()
+    return [w.to(mesh.device) for w in wires]
 
 
 # -- collectives with a gradient, for the tensor-parallel step (parallel/tp.py)
@@ -534,15 +622,15 @@ def launch_ranks(cmd: Sequence[str], world_size: int, env: Optional[dict] = None
                  poll_s: float = 0.05) -> int:
     """Run ``cmd`` as ranks 0 … world_size-1 of one group and wait for all.
 
-    Each rank gets torchrun's variables (RANK, WORLD_SIZE, LOCAL_RANK,
-    MASTER_ADDR 127.0.0.1, MASTER_PORT a free port) and runs in a session
-    of its own: SIGINT and SIGTERM sent to this process are passed on to
+    Each rank gets torchrun's RANK, WORLD_SIZE and LOCAL_RANK, and in
+    YDL_RENDEZVOUS a rendezvous file of this launch (a port picked here
+    could be taken by another process before rank 0 binds it), and runs in
+    a session of its own: SIGINT and SIGTERM sent to this process are passed on to
     every rank, once each.  When a rank exits with an error, the others
     are killed and :class:`RankFailed` carries the first rank's error line;
     so it does when ``timeout`` seconds pass first.  Returns 0 when every
     rank exits 0; no rank is left running.
     """
-    port = free_port()
     errors = tempfile.mkdtemp(prefix="ydl-ranks-")
     base = dict(os.environ if env is None else env)
     procs = []
@@ -560,8 +648,8 @@ def launch_ranks(cmd: Sequence[str], world_size: int, env: Optional[dict] = None
     try:
         for rank in range(world_size):
             rank_env = dict(base, RANK=str(rank), WORLD_SIZE=str(world_size),
-                            LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world_size),
-                            MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+                            LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world_size))
+            rank_env[RENDEZVOUS_ENV] = "file://" + os.path.join(errors, "rendezvous")
             rank_env[ERROR_FILE_ENV] = os.path.join(errors, f"rank{rank}.json")
             procs.append(subprocess.Popen(list(cmd), env=rank_env, cwd=cwd,
                                           start_new_session=True,
@@ -602,6 +690,8 @@ def _first_error(errors: str, failed: List[int], codes: List[int]) -> str:
     it), else the exit code of the first rank seen failing."""
     written = []
     for name in os.listdir(errors):
+        if not re.fullmatch(r"rank\d+\.json", name):  # the rendezvous file
+            continue
         with open(os.path.join(errors, name)) as f:
             entry = json.load(f)
         written.append((entry["time"], int(name[4:-5]), entry["message"]))

@@ -116,10 +116,10 @@ class LayerShard:
         return batch_norm_apply_sync(params, state, x, train, self.mesh.data)
 
 
-def _tp_layers(model: YoloModel):
+def _tp_layers(model: YoloModel, keys: Optional[Sequence[int]] = None):
     """(module, conv groups) of every layer the leaf rule may cut, in graph
-    order."""
-    for key in model.graph.order:
+    order (of the nodes ``keys`` only, when given)."""
+    for key in model.graph.order if keys is None else keys:
         layer = model.graph.nodes[key].config
         if isinstance(layer, (cfg.ConvBn2D, cfg.Conv2D, cfg.DeconvBn2D)):
             yield model._node(key), layer.g
@@ -152,6 +152,22 @@ def _cut(t: torch.Tensor, mesh: TPMesh) -> torch.Tensor:
     return t.narrow(0, mesh.model_index * part, part).clone()
 
 
+def check_recurrent_bn(model: YoloModel, n_data: int, what: str,
+                       keys: Optional[Sequence[int]] = None) -> None:
+    """Raise when ``n_data`` data ranks would train a recurrent layer (of
+    ``keys``, when given) that normalizes: its BN keeps per-rank
+    statistics."""
+    if n_data == 1:
+        return
+    for key in model.graph.order if keys is None else keys:
+        layer = model.graph.nodes[key].config
+        if isinstance(layer, _RECURRENT) and layer.bn:
+            raise ValueError(
+                f"{what} over {n_data} data ranks: the recurrent layer "
+                f"{model._pname[key]} normalizes per rank (its BN statistics are not "
+                "synchronized); use one data rank")
+
+
 @torch.no_grad()
 def shard_model(mesh: TPMesh, model: YoloModel) -> List[str]:
     """Cut ``model``'s parameters and BN statistics to this rank's output
@@ -159,14 +175,7 @@ def shard_model(mesh: TPMesh, model: YoloModel) -> List[str]:
     :class:`LayerShard` → the ``state_dict`` keys that were cut.  Raises
     when the data axis has several ranks and a recurrent layer normalizes
     (its BN would keep per-rank statistics)."""
-    if mesh.n_data > 1:
-        for key in model.graph.order:
-            layer = model.graph.nodes[key].config
-            if isinstance(layer, _RECURRENT) and layer.bn:
-                raise ValueError(
-                    f"tensor parallelism over {mesh.n_data} data ranks: the recurrent "
-                    f"layer {model._pname[key]} normalizes per rank (its BN statistics "
-                    "are not synchronized); use one data rank")
+    check_recurrent_bn(model, mesh.n_data, "tensor parallelism")
     plan = tp_shardings(mesh, model)
     for module, groups in _tp_layers(model):
         module.shard = LayerShard(mesh, _is_cut(module, groups, mesh.n_model))
@@ -233,6 +242,24 @@ def check_model_group_batch(mesh: TPMesh, batch: Any) -> None:
             "pipeline with the same seed)")
 
 
+def gather_batch(axis, outputs, gt_boxes, gt_classes, gt_mask):
+    """Every rank's rows of ``axis`` of a micro-batch's head outputs (a
+    MergedDetection, or a tuple of raw head tensors) and targets, in rank
+    order, for a loss computed whole on every rank; the outputs' backward
+    keeps this rank's rows (:func:`gather_rows`)."""
+    if axis.world_size == 1:
+        return outputs, gt_boxes, gt_classes, gt_mask
+    if isinstance(outputs, tuple):
+        outputs = tuple(gather_rows(t, axis) for t in outputs)
+    else:
+        outputs = dataclasses.replace(outputs, **{
+            f.name: gather_rows(getattr(outputs, f.name), axis)
+            for f in dataclasses.fields(outputs)
+            if isinstance(getattr(outputs, f.name), torch.Tensor)})
+    mask = axis.all_gather(gt_mask.to(torch.uint8)).to(torch.bool)
+    return outputs, axis.all_gather(gt_boxes), axis.all_gather(gt_classes), mask
+
+
 class TPHooks(StepHooks):
     """The tensor-parallel step's changes to ``make_train_step`` (see the
     module's doc)."""
@@ -244,18 +271,7 @@ class TPHooks(StepHooks):
         self.cut_names = {_tree_name(n) for n, p in model.named_parameters() if id(p) in cut}
 
     def gather(self, outputs, gt_boxes, gt_classes, gt_mask):
-        axis = self.mesh.data
-        if axis.world_size == 1:
-            return outputs, gt_boxes, gt_classes, gt_mask
-        if isinstance(outputs, tuple):
-            outputs = tuple(gather_rows(t, axis) for t in outputs)
-        else:
-            outputs = dataclasses.replace(outputs, **{
-                f.name: gather_rows(getattr(outputs, f.name), axis)
-                for f in dataclasses.fields(outputs)
-                if isinstance(getattr(outputs, f.name), torch.Tensor)})
-        mask = axis.all_gather(gt_mask.to(torch.uint8)).to(torch.bool)
-        return outputs, axis.all_gather(gt_boxes), axis.all_gather(gt_classes), mask
+        return gather_batch(self.mesh.data, outputs, gt_boxes, gt_classes, gt_mask)
 
     def reduce(self, metrics: dict) -> dict:
         _mean_over_ranks(self.mesh.data, [p.grad for p in self.model.parameters()],

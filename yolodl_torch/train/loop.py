@@ -303,14 +303,21 @@ def make_batch_grads(
             for p in model.parameters():
                 if p.grad is not None:
                     p.grad.div_(accum)
-        return {
-            k: (torch.sum(torch.stack([y[k] for y in ys]), 0) if k == "num_matched"
-                else ys[0][k] if k == "obj_sample"  # first image overall
-                else torch.mean(torch.stack([y[k] for y in ys]), 0))
-            for k in ys[0]
-        }
+        return combine_micro_batches(ys)
 
     return batch_grads
+
+
+def combine_micro_batches(ys) -> dict:
+    """One logical batch's metrics from its micro-batches' (in order):
+    ``num_matched`` summed, ``obj_sample`` the first's (the first image
+    overall), every other metric averaged."""
+    return {
+        k: (torch.sum(torch.stack([y[k] for y in ys]), 0) if k == "num_matched"
+            else ys[0][k] if k == "obj_sample"
+            else torch.mean(torch.stack([y[k] for y in ys]), 0))
+        for k in ys[0]
+    }
 
 
 def _sq_norm(grads) -> Tensor:
