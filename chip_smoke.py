@@ -249,7 +249,7 @@ result line:
    events).  Then 2 ranks on cuda:0
    over gloo (NCCL refuses two ranks on one device), started by
    parallel/mesh.py launch_ranks: the flagship b16 as 8 rows a rank, one
-   warm-up and 3 timed steps (CUDA events), the all-reduce's ms, the
+   warm-up and 2 timed steps (CUDA events), the all-reduce's ms, the
    two ranks' parameters bit-identical (sha256); yolov4-tiny at 64² with
    seeded BN, one f32 SGD step of 8 rows a rank, on the card and on the
    CPU in the same ranks: loss within rel 1e-5, num_matched equal, every
@@ -272,10 +272,10 @@ result line:
    and BN statistics within 1e-6 (tests/test_train.py:405-411), max|Δ|
    printed.  Then 2 ranks on cuda:0 over gloo (launch_ranks): ZeRO-1 on
    the flagship b16 as 8 rows a rank, the reduce-scatter route the backend
-   rule chose, one warm-up and 3 timed steps (CUDA events), the ms of the
+   rule chose, one warm-up and 2 timed steps (CUDA events), the ms of the
    reduce-scatter and of the all-gather, the optimizer-state bytes per
    rank beside the data-parallel step's, the two ranks' parameters
-   bit-identical (sha256) and their 4 losses equal to the data-parallel
+   bit-identical (sha256) and their 3 losses equal to the data-parallel
    step's on the same rows (rel 1e-5).  In the same ranks, tensor
    parallelism 1×2: rank 0 first takes one f32 SGD step (momentum 0.937)
    of the flagship at 608² on a global batch of 2 alone; the 1×2 step on
@@ -305,7 +305,7 @@ result line:
    of the flagship at 608², b16 as 2 micro-batches, through the
    single-process make_train_step(accum=2) alone (TF32 off, cuDNN
    deterministic), the same step on images 1 ulp up (the control), and
-   the bf16 accumulation step (default TrainConfig(), one warm-up and 3
+   the bf16 accumulation step (default TrainConfig(), one warm-up and 2
    timed, its peak memory); then both ranks take the same steps as a
    2-stage pipeline (76 and 101 nodes, each rank holding its stage only):
    the f32 loss within rel 1e-5 and every parameter and BN statistic
@@ -313,7 +313,7 @@ result line:
    factor: the stages run the single process's arithmetic; the control's
    difference and the count of bit-identical tensors are printed beside
    it), the bf16 step's ms (one
-   warm-up, 3 timed by CUDA events) with the host ms spent inside the
+   warm-up, 2 timed by CUDA events) with the host ms spent inside the
    host-staged transfer calls, and each rank's peak memory beside the
    single process's.  Then train_main with MultiDevice [cuda:0, cuda:0],
    pipeline_parallel 2 and 2 micro-batches on the toy workspace under
@@ -324,8 +324,39 @@ result line:
    launched once per evaluated batch on rank 0 (none on rank 1); last,
    detect_main in this process on that checkpoint over the workspace's 8
    images, one launch of each B1 kernel per batch of 4.
-15. card  — `nvidia-smi --query-gpu=name,power.limit` as it prints it.
+15. spatial — spatial parallelism (ROADMAP A14d,
+   yolodl_torch/parallel/spatial.py and spatial_model.py): the image
+   height cut over 2 ranks on cuda:0 over gloo (launch_ranks,
+   spatial_rank), TF32 off and cuDNN deterministic for f32.  yolov4-csp
+   built at 608² and at 1216² (the planner reads the graph's static
+   heights; seed-0 weights, seeded BN) through make_spatial_infer on a
+   space mesh of 2: at 608², b8, 85 of 177 nodes run height-sharded and
+   the prefix stops at /16 (19 rows do not halve); at 1216², b2, 173.
+   Every output of the f32 MergedDetection within 1e-4 · max|ref| of the
+   unsharded forward in one process (rank 0), the two ranks' outputs
+   bit-identical (sha256), and non_max_suppression on the spatial and the
+   unsharded outputs giving identical keep masks (`valid`), with B1's
+   counters zeroed right before and read right after the NMS of the
+   spatial output: one launch of each kernel per batch.  The entries in
+   another order (near-tied scores) and the kept (instance, class) pairs
+   not shared are printed beside the same counts for one process on
+   images 1 ulp up.  Then the bf16 forward (bf16 activations, as the
+   service runs them): ms by CUDA events (one warm-up, 3 timed) with the
+   host ms inside the halo and gather transfers, and each rank's peak
+   memory, beside one process's.  Then one f32 SGD step (lr 1e-2) at
+   608², b8, on a 1 × 2 mesh against rank 0's single-process
+   make_train_step on the same batch: the loss within rel 1e-5 and the
+   forward's outputs within 1e-4 · max|ref|; ‖Δ − Δ_one‖₂ / ‖Δ_one‖₂ of
+   every parameter and BN statistic (Δ the change the step made) is
+   printed beside the same quantity for one process on images 1 ulp up.
+   The same step in float64 is held to ‖Δ − Δ_one‖₂ ≤ 1e-3 · ‖Δ_one‖₂ for
+   every tensor (a prefix gradient off by the space axis's factor reads
+   0.5; in f32, rounding alone moves a BN scale's change by 3e-2).  Last,
+   three timed bf16 steps (SGD, one warm-up) of each: step ms and the host
+   ms inside the transfers.
+16. card  — `nvidia-smi --query-gpu=name,power.limit` as it prints it.
 
+After the last phase a line gives each phase's wall seconds (`timing`).
 The line before the last lists the kernels; the last line is
 {"ok": true, "device": {...}}.  TF32 is switched off for every f32
 comparison on the card (cuDNN would otherwise run f32 convs in TF32).
@@ -395,7 +426,7 @@ AUGMENT_BATCH = 16            # bench.py:20, and the bench script's
 AUGMENT_RECORDS = 64          # the bench script's synthetic set
 AUGMENT_ROTATE = 10.0         # the bench script's recipe: rotation up to 10°, scale 0.8-1.2
 AUGMENT_TIMED = 20            # program calls timed by CUDA events, after 10 warm-up calls
-AUGMENT_HOST_BATCHES = 2      # host batches timed per route, after one warm-up batch
+AUGMENT_HOST_BATCHES = 1      # host batches timed per route, after one warm-up batch
 AUGMENT_STEPS = 5             # train_main steps: an evaluation at step 3
 AUGMENT_MEAN_TOL = 1e-5       # card vs CPU program: mean |Δ| ...
 AUGMENT_FLIP_TOL = 0.002      # ... and the share of pixels with |Δ| > 1e-3 (border, hue sextant)
@@ -424,7 +455,7 @@ DEPLOY_REQUESTS, DEPLOY_CLIENTS = 32, 8
 DP_ROOT = os.path.join(REPO, "build", "chip_smoke_dp")  # removed at the end
 DP_STEPS = 2                  # world size 1: steps held bit for bit against the plain step
 DP_TIMED = 3                  # ... then steps timed by CUDA events, their median reported
-DP_RANK_TIMED = 3             # 2 ranks: timed steps after one warm-up step
+DP_RANK_TIMED = 2             # 2 ranks: timed steps after one warm-up step
 DP_TINY_CFG = os.path.join(REPO, "cfg", "darknet", "yolov4-tiny.cfg")
 DP_TINY_SIZE, DP_TINY_BATCH = 64, 16  # card vs CPU, 8 rows a rank (tests/test_torch_dp.py)
 DP_TINY_TOL = 1e-4            # card vs CPU after one SGD step: tests/test_torch_dp.py's limit
@@ -436,7 +467,7 @@ YOLOV2_CFG = os.path.join(REPO, "cfg", "darknet", "yolov2.cfg")
 YOLOV2_SIZE = 416            # yolov2.cfg's own input size
 TP_ROOT = os.path.join(REPO, "build", "chip_smoke_tp")  # removed at the end
 TP_ZERO_STEPS = 2             # world size 1: ZeRO-1 steps held against the plain step
-TP_RANK_TIMED = 3             # 2 ranks: ZeRO-1 (and DP) steps timed after one warm-up step
+TP_RANK_TIMED = 2             # 2 ranks: ZeRO-1 (and DP) steps timed after one warm-up step
 TP_BATCH = 2                  # TP 1x2: the global batch of the f32 check and the bf16 steps
 TP_TIMED = 2                  # TP 1x2: bf16 steps timed after one warm-up step
 TP_F32_TOL = 1e-4             # TP 1x2 vs one process, f32: max|d| / max|ref| per tensor
@@ -447,8 +478,14 @@ TP_TIMEOUT = 900              # seconds for the ranks of each run
 PP_ROOT = os.path.join(REPO, "build", "chip_smoke_pp")  # removed at the end
 PP_ACCUM = 2                  # micro-batches a step (b16 -> 2 of 8 rows)
 PP_F32_TOL = 1e-4             # pipeline vs one process, f32: max|d| / max|ref| per tensor
-PP_TIMED = 3                  # bf16 steps timed after one warm-up step
+PP_TIMED = 2                  # bf16 steps timed after one warm-up step
 PP_TIMEOUT = 900              # seconds for the ranks of each run
+SPATIAL_ROOT = os.path.join(REPO, "build", "chip_smoke_spatial")  # removed at the end
+SPATIAL_INFER = [[608, 8], [1216, 2]]  # (size, batch) of the spatial inference checks
+SPATIAL_TRAIN = [608, 8]      # the 1 x 2 train step's size and global batch
+SPATIAL_F32_TOL = 1e-4        # spatial vs one process, f32 outputs: max|d| / max|ref|
+SPATIAL_DELTA_TOL = 1e-3      # each tensor's change by the float64 step: |Δ - Δ_one|₂ / |Δ_one|₂
+SPATIAL_TIMEOUT = 600         # seconds for the ranks
 CLASSIFY_ROOT = os.path.join(REPO, "build", "chip_smoke_classify")  # removed at the end
 VGG_CFG = os.path.join(REPO, "cfg", "darknet", "vgg-16.cfg")
 LSTM_CFG = os.path.join(REPO, "cfg", "darknet", "lstm.train.cfg")
@@ -4597,6 +4634,367 @@ def phase_pp() -> dict:
     return {"pp_train_main_eval": cli_launches, "pp_detect_main": detect["launches"]}
 
 
+def spatial_rank() -> None:
+    """One rank of phase spatial's 2-rank run (``python3 -c "import
+    chip_smoke; chip_smoke.spatial_rank()"`` under launch_ranks' variables):
+    the height of yolov4-csp cut over a space mesh of 2, inference at each
+    of SPATIAL_INFER's sizes and one train step on a 1 × 2 mesh, rank 0
+    first taking the single-process forward and step alone; results to
+    SPATIAL_ROOT/rank<r>.json.  The device comes from SPATIAL_ROOT/spec.json,
+    written by the parent."""
+    sys.path.insert(0, REPO)
+    with open(os.path.join(SPATIAL_ROOT, "spec.json")) as f:
+        spec = json.load(f)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    import dataclasses
+    import hashlib
+
+    from yolodl_torch.config import darknet_cfg as dk
+    from yolodl_torch.graph.from_darknet import graph_from_darknet
+    from yolodl_torch.kernels import iou
+    from yolodl_torch.loss import non_max_suppression
+    from yolodl_torch.models import YoloModel
+    from yolodl_torch.parallel import init_process_group
+    from yolodl_torch.parallel import mesh as mesh_mod
+    from yolodl_torch.parallel.mesh import destroy_process_group
+    from yolodl_torch.parallel.spatial_model import (make_data_space_mesh, make_spatial_infer,
+                                                     make_spatial_train_step, plan_spatial_prefix,
+                                                     shard_batch_2d)
+    from yolodl_torch.train import TrainConfig, loop, make_train_step, train_init
+    from yolodl_torch.train.lr_schedule import LrScheduleConfig
+
+    world = init_process_group(spec["device"])
+    device, on_card, chief = world.device, world.device.type == "cuda", world.rank == 0
+    darknet = dk.Darknet.load(CFG)
+    mesh = make_data_space_mesh(1, 2)
+
+    def flagship(size):
+        net = dataclasses.replace(darknet.net, width=size, height=size)
+        model = YoloModel(graph_from_darknet(dataclasses.replace(darknet, net=net)),
+                          device=device, generator=torch.Generator().manual_seed(0))
+        randomize_bn(model, 0)
+        return model
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def fresh():
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+
+    def rel(a, b) -> float:  # max|a - b| / max|b|
+        return float((a.float() - b.float()).abs().max()) / max(float(b.float().abs().max()),
+                                                                1e-30)
+
+    # the host ms inside the transfers, by kind
+    log = []
+
+    def timing(kind, fn):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            result = fn(*args, **kwargs)
+            log.append((kind, (time.perf_counter() - t0) * 1e3))
+            return result
+        return wrapped
+
+    saved = (mesh_mod.neighbour_exchange, mesh_mod.DataMesh.all_gather,
+             mesh_mod.DataMesh.reduce_scatter, mesh_mod.DataMesh.all_reduce_)
+    mesh_mod.neighbour_exchange = timing("halo", saved[0])
+    mesh_mod.DataMesh.all_gather = timing("gather", saved[1])
+    mesh_mod.DataMesh.reduce_scatter = timing("reduce_scatter", saved[2])
+    mesh_mod.DataMesh.all_reduce_ = timing("all_reduce", saved[3])
+
+    def transfers():
+        kinds = collections.defaultdict(float)
+        for kind, ms in log:
+            kinds[kind] += ms
+        return {"calls": len(log), "host_ms": sum(kinds.values()), "by_kind": dict(kinds)}
+
+    def timed(fn, n):
+        """ms of each of ``n`` calls after one warm-up, and the transfers'
+        host ms of each."""
+        ms, moved = [], []
+        for i in range(1 + n):
+            log.clear()
+            t = timed_ms(fn, device)
+            if i:
+                ms.append(t)
+                moved.append(transfers())
+        return ms, moved
+
+    def nms_diff(a, b) -> dict:
+        """Entries of each field that differ, and the (instance, class)
+        pairs kept by one and not the other, over the batch."""
+        def kept(n, i):
+            v = n.valid[i]
+            return set(zip(n.instances[i][v].tolist(), n.classes[i][v].tolist()))
+        return {**{f: int((getattr(a, f) != getattr(b, f)).sum())
+                   for f in ("valid", "classes", "instances")},
+                "kept_pairs_not_shared": sum(len(kept(a, i) ^ kept(b, i))
+                                             for i in range(a.valid.shape[0]))}
+
+    def digest(pred) -> str:
+        h = hashlib.sha256()
+        for f in ("cycxhw", "obj_logit", "class_logit"):
+            h.update(getattr(pred, f).detach().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    nms_kernels = (iou.nms_conflict_bits, iou.nms_keep_from_bits)
+    out = {"rank": world.rank, "backend": world.backend, "reason": world.reason,
+           "route": mesh.route, "infer": [], "nms_launches": {fn.__name__: 0 for fn in nms_kernels}}
+    for size, batch in spec["infer"]:
+        model = flagship(size)
+        sharded, cut = plan_spatial_prefix(model, 2)
+        infer = make_spatial_infer(model, mesh)
+        x = torch.from_numpy(np.random.default_rng(size).uniform(
+            0, 1, (batch, 3, size, size)).astype(np.float32)).to(device)
+        line = {"size": size, "batch": batch, "sharded_nodes": len(sharded),
+                "nodes": len(model.graph.order),
+                "cut": {model._pname[k]: model.graph.nodes[k].output_shape.tensor_shape()[2].size
+                        for k in cut}}
+        pred = infer(x)  # f32
+        if chief:
+            with torch.no_grad():
+                ref = model(x)
+            line["f32_err_of_max"] = {f: rel(getattr(pred, f), getattr(ref, f))
+                                      for f in ("cycxhw", "obj_logit", "class_logit")}
+            for fn in nms_kernels:
+                fn.launches = 0
+            kept = non_max_suppression(pred, iou_threshold=NMS_IOU, class_mode="argmax")
+            sync()
+            launches = {fn.__name__: fn.launches for fn in nms_kernels}
+            for name, n in launches.items():
+                out["nms_launches"][name] += n
+            want = non_max_suppression(ref, iou_threshold=NMS_IOU, class_mode="argmax")
+            # the same forward on images 1 ulp up: how far rounding alone
+            # moves the outputs and the suppression (printed, not used)
+            with torch.no_grad():
+                nudged = model(torch.nextafter(x, torch.tensor(float("inf"), device=device)))
+            line.update(nms_launches=launches, kept=int(kept.valid.sum()),
+                        nms_differences=nms_diff(kept, want),
+                        control_err_of_max={f: rel(getattr(nudged, f), getattr(ref, f))
+                                            for f in ("cycxhw", "obj_logit", "class_logit")},
+                        control_nms_differences=nms_diff(non_max_suppression(
+                            nudged, iou_threshold=NMS_IOU, class_mode="argmax"), want))
+            del ref, want, kept, nudged
+        line["digest"] = digest(pred)
+        del pred
+        # bf16 activations (the service's): one process on rank 0 alone,
+        # then the two ranks
+        xb = x.to(torch.bfloat16)
+        if chief:
+            fresh()
+            with torch.no_grad():
+                line["one_process_bf16_ms"] = timed(lambda: model(xb), 3)[0]
+            line["one_process_bf16_peak_gb"] = peak_gb()
+        mesh.base.agree(False)
+        fresh()
+        line["bf16_ms"], line["bf16_transfers"] = timed(lambda: infer(xb), 3)
+        line["bf16_peak_gb"] = peak_gb()
+        out["infer"].append(line)
+        del model, infer, x, xb
+
+    def changes(model, init) -> dict:  # Δ: what the step changed, per tensor
+        return {k: v.detach() - init[k] for k, v in model.state_dict().items()}
+
+    def delta_err(delta, one) -> dict:  # ‖Δ − Δ_one‖₂ / ‖Δ_one‖₂ per tensor
+        errs = {}
+        for k, d1 in one.items():
+            n1 = float(torch.linalg.vector_norm(d1.double()))
+            nd = float(torch.linalg.vector_norm((delta[k] - d1).double()))
+            errs[k] = nd / n1 if n1 > 0 else (0.0 if nd == 0 else float("inf"))
+        return errs
+
+    # one f32 SGD step of a 1 x 2 mesh against one process (rank 0 alone)
+    size, batch = spec["train"]
+    preds = []
+    real_loss = loop.yolo_loss
+
+    def capturing(pred, *args, **kwargs):
+        preds.append({f: getattr(pred, f).detach().clone()
+                      for f in ("cycxhw", "obj_logit", "class_logit")})
+        return real_loss(pred, *args, **kwargs)
+
+    loop.yolo_loss = capturing
+    sgd = TrainConfig(optimizer="sgd", lr=LrScheduleConfig(kind="constant", lr=1e-2))
+    data = [torch.from_numpy(a).to(device) for a in synthetic_batch(batch, size, seed=6)]
+    model = flagship(size)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    ref = {}
+    if chief:
+        for name, nudge in (("single", False), ("control", True)):
+            model.load_state_dict(init)
+            fresh()
+            ts, opt = train_init(model, sgd)
+            rows = list(data)
+            if nudge:  # the same step on images 1 ulp up: rounding alone
+                rows[0] = torch.nextafter(rows[0], torch.tensor(float("inf"), device=device))
+            preds.clear()
+            _, m = make_train_step(model, opt, sgd)(ts, *rows)
+            ref[name] = {"loss": float(m["total_loss"]), "pred": preds[0], "peak_gb": peak_gb(),
+                         "delta": changes(model, init)}
+            del ts, opt
+    mesh.base.agree(False)
+    model.load_state_dict(init)
+    fresh()
+    ts, opt = train_init(model, sgd)
+    preds.clear()
+    log.clear()
+    _, m = make_spatial_train_step(model, opt, sgd, mesh)(ts, *shard_batch_2d(mesh, data))
+    train = {"size": size, "batch": batch, "loss": float(m["total_loss"]),
+             "num_matched": int(m["num_matched"]), "peak_gb": peak_gb(),
+             "f32_transfers": transfers()}
+    if chief:
+        single = ref["single"]
+        mine = delta_err(changes(model, init), single["delta"])
+        control = delta_err(ref["control"]["delta"], single["delta"])
+        worst, c_worst = max(mine, key=mine.get), max(control, key=control.get)
+        train.update(
+            single_loss=single["loss"], control_loss=ref["control"]["loss"],
+            single_peak_gb=single["peak_gb"], tensors=len(mine), worst=worst,
+            delta_err=mine[worst], control_worst=c_worst, control_delta_err=control[c_worst],
+            pred_err_of_max={f: rel(preds[0][f], single["pred"][f]) for f in single["pred"]},
+            control_pred_err_of_max={f: rel(ref["control"]["pred"][f], single["pred"][f])
+                                     for f in single["pred"]})
+        del ref, single
+    del ts, opt
+    loop.yolo_loss = real_loss
+    # the same step in float64, where f32 rounding cannot reach the change
+    # gate: at 608² one f32 step on images 1 ulp up already moves a BN
+    # scale's change by 3e-2 of its norm
+    model.double()
+    init64 = {k: v.double() for k, v in init.items()}
+    data64 = [data[0].double(), *data[1:]]
+    if chief:
+        model.load_state_dict(init64)
+        fresh()
+        ts, opt = train_init(model, sgd)
+        _, m = make_train_step(model, opt, sgd)(ts, *data64)
+        one64 = {"loss": float(m["total_loss"]), "delta": changes(model, init64),
+                 "peak_gb": peak_gb()}
+        del ts, opt
+    mesh.base.agree(False)
+    model.load_state_dict(init64)
+    fresh()
+    ts, opt = train_init(model, sgd)
+    _, m = make_spatial_train_step(model, opt, sgd, mesh)(ts, *shard_batch_2d(mesh, data64))
+    train["f64"] = {"loss": float(m["total_loss"]), "peak_gb": peak_gb()}
+    if chief:
+        errs = delta_err(changes(model, init64), one64["delta"])
+        worst = max(errs, key=errs.get)
+        train["f64"].update(single_loss=one64["loss"], single_peak_gb=one64["peak_gb"],
+                            tensors=len(errs), worst=worst, delta_err=errs[worst])
+        del one64
+    del ts, opt, init64, data64
+    model.float()
+    # bf16 steps (compute_dtype bf16, SGD): one process on rank 0 alone,
+    # then the 1 x 2 mesh
+    bf16 = TrainConfig(optimizer="sgd", compute_dtype="bfloat16",
+                       lr=LrScheduleConfig(kind="constant", lr=1e-2))
+    if chief:
+        model.load_state_dict(init)
+        fresh()
+        ts, opt = train_init(model, bf16)
+        step = make_train_step(model, opt, bf16)
+        train["one_process_bf16_ms"] = timed(lambda: step(ts, *data), 3)[0]
+        train["one_process_bf16_peak_gb"] = peak_gb()
+        del ts, opt, step
+    mesh.base.agree(False)
+    model.load_state_dict(init)
+    fresh()
+    ts, opt = train_init(model, bf16)
+    step = make_spatial_train_step(model, opt, bf16, mesh)
+    rows = shard_batch_2d(mesh, data)
+    losses = []
+    train["bf16_ms"], train["bf16_transfers"] = timed(
+        lambda: losses.append(float(step(ts, *rows)[1]["total_loss"])), 3)
+    train.update(bf16_losses=losses, bf16_peak_gb=peak_gb())
+    out["train"] = train
+    (mesh_mod.neighbour_exchange, mesh_mod.DataMesh.all_gather,
+     mesh_mod.DataMesh.reduce_scatter, mesh_mod.DataMesh.all_reduce_) = saved
+    with open(os.path.join(SPATIAL_ROOT, f"rank{world.rank}.json"), "w") as f:
+        json.dump(out, f)
+    destroy_process_group()
+
+
+def phase_spatial() -> dict:
+    """Spatial parallelism (ROADMAP A14d): 2 ranks on one card over gloo;
+    checks."""
+    import shutil
+
+    from yolodl_torch.parallel.mesh import launch_ranks
+
+    t0 = time.perf_counter()
+    shutil.rmtree(SPATIAL_ROOT, ignore_errors=True)
+    os.makedirs(SPATIAL_ROOT)
+    try:
+        write_json(os.path.join(SPATIAL_ROOT, "spec.json"), {
+            "device": f"{DEVICE}:0" if DEVICE == "cuda" else DEVICE,
+            "infer": SPATIAL_INFER, "train": SPATIAL_TRAIN})
+        launch_ranks([sys.executable, "-c", "import chip_smoke; chip_smoke.spatial_rank()"], 2,
+                     env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO, timeout=SPATIAL_TIMEOUT)
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(SPATIAL_ROOT, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(SPATIAL_ROOT, ignore_errors=True)
+    r0, r1 = ranks
+    failures = []
+    want = "ranks share cuda:0" if DEVICE == "cuda" else "ranks run on the CPU"
+    if r0["backend"] != "gloo" or r0["reason"] != want:
+        failures.append(f"2 ranks on one card: {r0['backend']} ({r0['reason']})")
+    for line, other in zip(r0["infer"], r1["infer"]):
+        where = f"spatial inference at {line['size']}², b{line['batch']}"
+        worst = max(line["f32_err_of_max"].values())
+        if not worst <= SPATIAL_F32_TOL:
+            failures.append(f"{where}, f32: {line['f32_err_of_max']} of max > {SPATIAL_F32_TOL}")
+        if line["digest"] != other["digest"]:
+            failures.append(f"{where}: the two ranks' outputs differ")
+        if line["nms_differences"]["valid"]:
+            failures.append(f"{where}: NMS keep masks differ from the unsharded forward's: "
+                            f"{line['nms_differences']} (the 1-ulp control: "
+                            f"{line['control_nms_differences']})")
+        if DEVICE == "cuda" and set(line["nms_launches"].values()) != {1}:
+            failures.append(f"{where}: NMS launches {line['nms_launches']} for one batch")
+    t = r0["train"]
+    if not abs(t["loss"] - t["single_loss"]) <= 1e-5 * abs(t["single_loss"]) or \
+            t["loss"] != r1["train"]["loss"]:
+        failures.append(f"spatial f32 step: loss {t['loss']} (rank 1 {r1['train']['loss']}) "
+                        f"vs one process {t['single_loss']}")
+    if not max(t["pred_err_of_max"].values()) <= SPATIAL_F32_TOL:
+        failures.append(f"spatial f32 step: forward {t['pred_err_of_max']} of max (the 1-ulp "
+                        f"control, printed only: {t['control_pred_err_of_max']})")
+    # each tensor's change, held in float64 (the f32 step's and its 1-ulp
+    # control's are printed: f32 rounding alone reaches 3e-2 of a norm)
+    f64 = t["f64"]
+    if not f64["delta_err"] <= SPATIAL_DELTA_TOL or f64["loss"] != r1["train"]["f64"]["loss"]:
+        failures.append(f"spatial float64 step: |Δ - Δ_one| = {f64['delta_err']} |Δ_one| at "
+                        f"{f64['worst']} > {SPATIAL_DELTA_TOL}, or the ranks' losses differ "
+                        f"({f64['loss']}, {r1['train']['f64']['loss']})")
+    if not all(np.isfinite(t["bf16_losses"])) or t["bf16_losses"] != r1["train"]["bf16_losses"]:
+        failures.append(f"spatial bf16 losses {t['bf16_losses']} "
+                        f"(rank 1 {r1['train']['bf16_losses']})")
+    emit({"phase": "spatial", "model": "yolov4-csp", "backend": r0["backend"],
+          "reason": r0["reason"], "route": r0["route"],
+          "infer": {"rank0": r0["infer"], "rank1": [
+              {k: line[k] for k in ("size", "bf16_ms", "bf16_transfers", "bf16_peak_gb")}
+              for line in r1["infer"]]},
+          "train": {"rank0": t, "rank1": {k: r1["train"][k] for k in (
+              "loss", "peak_gb", "f64", "bf16_ms", "bf16_transfers", "bf16_peak_gb")}},
+          "failures": failures, "seconds": time.perf_counter() - t0, "card": card_line()})
+    if failures:
+        raise AssertionError("phase spatial: " + "; ".join(failures))
+    return {"spatial_infer_nms": r0["nms_launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4613,23 +5011,37 @@ def main() -> int:
 
     emit({"phase": "build", "seconds": _build.build_all(),
           "libraries": [str(_build.library_path(n).relative_to(REPO)) for n in _build.SOURCES]})
-    k = phase_kernel(iou)
-    launches = phase_serve(iou)
-    # B1's launches on each path that runs it
-    by_path = {"serve": {n: launches[n] for n in ("nms_conflict_bits", "nms_keep_from_bits")},
-               "serve_dense_route": {"pairwise_iou": launches["pairwise_iou"]},
-               **phase_cli(iou)}
-    train_main_launches, train_main_summary = phase_train_main(iou)
-    by_path.update(train_main_launches)
-    by_path.update(phase_augment(iou, train_main_summary))
-    wgrad_launches, wgrad = phase_wgrad()
-    train_ms = phase_train()
-    by_path.update(phase_darknet_loss(iou, train_ms))
-    by_path.update(phase_deploy(iou))
-    by_path.update(phase_classify(iou))
-    by_path.update(phase_dp(iou))
-    by_path.update(phase_tp())
-    by_path.update(phase_pp())
+    seconds = {}
+
+    def run(name, fn, *args):  # each phase's wall seconds, for the timing line
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            seconds[name] = time.perf_counter() - t0
+
+    try:
+        k = run("kernel", phase_kernel, iou)
+        launches = run("serve", phase_serve, iou)
+        # B1's launches on each path that runs it
+        by_path = {"serve": {n: launches[n] for n in ("nms_conflict_bits", "nms_keep_from_bits")},
+                   "serve_dense_route": {"pairwise_iou": launches["pairwise_iou"]},
+                   **run("cli", phase_cli, iou)}
+        train_main_launches, train_main_summary = run("train_main", phase_train_main, iou)
+        by_path.update(train_main_launches)
+        by_path.update(run("augment", phase_augment, iou, train_main_summary))
+        wgrad_launches, wgrad = run("wgrad", phase_wgrad)
+        train_ms = run("train", phase_train)
+        by_path.update(run("darknet_loss", phase_darknet_loss, iou, train_ms))
+        by_path.update(run("deploy", phase_deploy, iou))
+        by_path.update(run("classify", phase_classify, iou))
+        by_path.update(run("dp", phase_dp, iou))
+        by_path.update(run("tp", phase_tp))
+        by_path.update(run("pp", phase_pp))
+        by_path.update(run("spatial", phase_spatial))
+    finally:  # also when a phase fails
+        emit({"phase": "timing", "seconds_by_phase": seconds,
+              "seconds": sum(seconds.values())})
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -1601,3 +1601,134 @@ def start_pp_ranks(tmp_path, cases, batches, n):
     procs = start_ranks(["-c", PP_RANK_SCRIPT, str(tmp_path / "spec.json")], n,
                         env={RENDEZVOUS_ENV: f"file://{tmp_path / 'rendezvous'}"})
     return procs, str(tmp_path / "pp")
+
+
+# -- spatial parallelism (test_torch_spatial*.py): ranks over gloo
+
+# One rank of a spatial run, as ``python -c SPATIAL_RANK_SCRIPT spec.json``:
+# joins the group (a rendezvous file), then for each case of the spec:
+# "conv" runs spatial_conv2d through make_spatial_forward on the space
+# mesh for every (k, s) of the case and a two-conv stack with mish whose
+# gradients (the input's, and each kernel's, summed over the ranks) rank 0
+# writes; "infer" runs make_spatial_infer on the first batch's images
+# (every rank writes its outputs); "step" builds the model in the case's
+# dtype, loads the shared initial weights (frozen paths first, when
+# given), takes one make_spatial_train_step on its part of the first
+# batch and writes (rank 0) the metrics, the state and every parameter's
+# gradient after the step, and (every rank) a digest of its state.  It
+# imports neither JAX nor the reference.
+SPATIAL_RANK_SCRIPT = r"""
+import hashlib, json, sys
+import numpy as np, torch
+import torch.nn.functional as F
+torch.set_num_threads(1)
+from yolodl_torch import activations
+from yolodl_torch.graph.from_darknet import load_darknet_graph
+from yolodl_torch.models import YoloModel
+from yolodl_torch import parallel as par
+from yolodl_torch.parallel import spatial, spatial_model as sm
+from yolodl_torch.parallel.mesh import destroy_process_group
+from yolodl_torch.train import loop
+from yolodl_torch.train.lr_schedule import LrScheduleConfig
+
+spec = json.load(open(sys.argv[1]))
+world = par.init_process_group("cpu")
+data = np.load(spec["batches"])
+out = {}
+for name, case in spec["cases"].items():
+    mode = case["mode"]
+    mesh = sm.make_data_space_mesh(*case.get("mesh", [1, world.world_size]))
+    if mode == "conv":
+        x = torch.from_numpy(data["x"])
+        for k, s in case["kernels"]:
+            w = torch.from_numpy(data[f"w{k}"])
+            fwd = spatial.make_spatial_forward(
+                lambda xl: spatial.spatial_conv2d(xl, w, (k - 1) // 2, s, mesh.space), mesh)
+            out[f"{name}/k{k}s{s}"] = fwd(x).numpy()
+        x = x.clone().requires_grad_(True)
+        w1, w2 = (torch.from_numpy(data[n]).requires_grad_(True) for n in ("s1", "s2"))
+
+        def stack(xl):
+            h = activations.apply("mish", spatial.spatial_conv2d(xl, w1, 1, 1, mesh.space))
+            return activations.apply("mish", spatial.spatial_conv2d(h, w2, 1, 2, mesh.space))
+
+        y = spatial.make_spatial_forward(stack, mesh)(x)
+        (y * torch.from_numpy(data["g"])).sum().backward()
+        out[f"{name}/stack"] = y.detach().numpy()
+        for n, t in (("x", x), ("s1", w1), ("s2", w2)):
+            out[f"{name}/grad/{n}"] = mesh.space.all_reduce_(t.grad.clone()).numpy()
+        continue
+    graph = load_darknet_graph(case["model"])
+    if case.get("frozen"):
+        graph.stop_gradient_paths = frozenset(case["frozen"])
+    dtype = getattr(torch, case.get("dtype", "float32"))
+    model = YoloModel(graph, device="cpu").to(dtype)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in np.load(case["init"]).items()})
+    images = torch.from_numpy(data["images0"]).to(dtype)
+    if mode == "infer":
+        pred = sm.make_spatial_infer(model, mesh)(images)
+        for f in ("cycxhw", "obj_logit", "class_logit"):
+            out[f"{name}/{world.rank}/{f}"] = getattr(pred, f).numpy()
+        continue
+    kw = dict(case["config"])
+    cfg = loop.TrainConfig(lr=LrScheduleConfig(kind="constant", lr=kw.pop("lr")), **kw)
+    ts, opt = loop.train_init(model, cfg)
+    step = sm.make_spatial_train_step(model, opt, cfg, mesh)
+    batch = [torch.from_numpy(data[f"{k}0"]) for k in ("images", "boxes", "classes", "mask")]
+    batch[0] = batch[0].to(dtype)
+    ts, metrics = step(ts, *sm.shard_batch_2d(mesh, batch))
+    if world.rank == 0:
+        for k, v in metrics.items():
+            out[f"{name}/metrics/{k}"] = v.numpy()
+        for k, v in model.state_dict().items():
+            out[f"{name}/state/{k}"] = v.numpy()
+        for k, p in model.named_parameters():
+            if p.grad is not None:
+                out[f"{name}/grad/{k}"] = p.grad.numpy()
+    digest = hashlib.sha256()
+    for v in model.state_dict().values():
+        digest.update(v.numpy().tobytes())
+    out[f"{name}/digest/{world.rank}"] = np.asarray(digest.hexdigest())
+np.savez(f"{spec['out']}.r{world.rank}.npz", **out)
+destroy_process_group()
+"""
+
+
+def start_spatial_ranks(tmp_path, cases, arrays, n):
+    """Write ``arrays`` (the named numpy inputs: ``images0``…, or the conv
+    cases' ``x``, kernels and ``g``) and the spec of ``cases`` ({name:
+    {mode, mesh?, model?, init state_dict?, config?, dtype?, frozen?,
+    kernels?}}) under ``tmp_path`` and start ``n`` ranks of
+    SPATIAL_RANK_SCRIPT → (processes, the output prefix)."""
+    np.savez(tmp_path / "arrays.npz", **arrays)
+    spec_cases = {}
+    for name, case in cases.items():
+        spec_cases[name] = {k: v for k, v in case.items() if k != "init"}
+        if "init" in case:
+            init = tmp_path / f"{name}.init.npz"
+            np.savez(init, **{k: v.numpy() for k, v in case["init"].items()})
+            spec_cases[name]["init"] = str(init)
+    spec = {"batches": str(tmp_path / "arrays.npz"), "cases": spec_cases,
+            "out": str(tmp_path / "spatial")}
+    (tmp_path / "spec.json").write_text(json.dumps(spec))
+    from yolodl_torch.parallel.mesh import RENDEZVOUS_ENV
+
+    procs = start_ranks(["-c", SPATIAL_RANK_SCRIPT, str(tmp_path / "spec.json")], n,
+                        env={RENDEZVOUS_ENV: f"file://{tmp_path / 'rendezvous'}"})
+    return procs, str(tmp_path / "spatial")
+
+
+def spatial_batch(rows=4, size=64, seed=4, duplicate=2):
+    """The reference test's batch (tests/test_spatial_model.py:101-110):
+    ``rows / duplicate`` seeded images repeated ``duplicate`` times (so
+    every data rank of ``duplicate`` holds the same images), one box
+    (0.5, 0.5, 0.4, 0.4) of class 0 an image."""
+    rng = np.random.default_rng(seed)
+    part = rng.uniform(0, 1, (rows // duplicate, 3, size, size)).astype(np.float32)
+    images = np.concatenate([part] * duplicate)
+    boxes = np.zeros((rows, 4, 4), np.float32)
+    boxes[:, 0] = (0.5, 0.5, 0.4, 0.4)
+    classes = np.zeros((rows, 4), np.int32)
+    mask = np.zeros((rows, 4), bool)
+    mask[:, 0] = True
+    return images, boxes, classes, mask

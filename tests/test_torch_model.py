@@ -139,7 +139,8 @@ def test_port_imports_neither_jax_nor_reference():
         "    'loss.darknet_loss', 'models.fold', 'models.export', 'parallel.pipeline',\n"
         "    'cli.tool_main', 'ops.recurrent', 'train.classifier', 'cli.classify_main',\n"
         "    'utils.tensor_ext', 'units', 'data.device_augment', 'parallel.mesh',\n"
-        "    'parallel.dp', 'parallel.zero', 'parallel.tp')}\n"
+        "    'parallel.dp', 'parallel.zero', 'parallel.tp', 'parallel.spatial',\n"
+        "    'parallel.spatial_model')}\n"
         "missing = sorted(need - set(sys.modules))\n"
         "print(n, bad, missing)\n"
         "sys.exit(1 if bad or missing or n < 50 else 0)\n"

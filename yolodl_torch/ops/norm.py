@@ -5,7 +5,9 @@ batch variance to normalize, unbiased variance for the running update.  The
 formula is copied rather than delegated to ``F.batch_norm``, so the port
 rounds as the reference does: the variance is one-pass ``E[x²] − mean²`` in
 f32, clamped at 0, and ``inv``/``shift`` are computed in f32 and cast to the
-activation dtype before ``x * inv + shift``.
+activation dtype before ``x * inv + shift``.  A float64 activation keeps its
+statistics in float64 (the reference has no float64; the port's float64
+runs check the parallel steps' arithmetic to the last bits).
 
 Layout: activations NCHW; stats and params are [C] vectors for axis 1.
 """
@@ -20,6 +22,11 @@ Tensor = torch.Tensor
 
 DEFAULT_EPS = 1e-4
 DEFAULT_MOMENTUM = 0.03
+
+
+def _stats_dtype(x: Tensor) -> torch.dtype:
+    """f32 for the statistics of bf16, f16 and f32 activations; f64 for f64."""
+    return torch.promote_types(x.dtype, torch.float32)
 
 
 def batch_norm_apply(
@@ -39,7 +46,7 @@ def batch_norm_apply(
     view = [1, c] + [1] * (x.dim() - 2)
 
     if train:
-        x32 = x.to(torch.float32)
+        x32 = x.to(_stats_dtype(x))
         batch_mean = torch.mean(x32, dim=reduce_dims)
         batch_var = torch.mean(torch.square(x32), dim=reduce_dims) - torch.square(batch_mean)
         batch_var = torch.clamp(batch_var, min=0.0)
@@ -90,7 +97,7 @@ def batch_norm_apply_sync(
     c = x.shape[1]
     reduce_dims = [d for d in range(x.dim()) if d != 1]
     view = [1, c] + [1] * (x.dim() - 2)
-    x32 = x.to(torch.float32)
+    x32 = x.to(_stats_dtype(x))
     stats = torch.stack([torch.mean(x32, dim=reduce_dims),
                          torch.mean(torch.square(x32), dim=reduce_dims)])
     mean, meansq = all_reduce_mean(stats, group)

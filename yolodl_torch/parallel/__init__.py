@@ -1,8 +1,10 @@
 """Parallelism, one process per rank: data-parallel training and
 multi-device inference (``mesh.py``, ``dp.py``), ZeRO-1 (``zero.py``),
 tensor parallelism and TP × ZeRO-1 on a 2-D data × model mesh (``tp.py``),
-and GPipe pipeline parallelism over ``n_stages × dp`` ranks
-(``pipeline.py``)."""
+GPipe pipeline parallelism over ``n_stages × dp`` ranks (``pipeline.py``),
+and spatial parallelism, the image height cut over a ``data × space`` mesh
+(``spatial.py``, ``spatial_model.py``; imported from their modules, as the
+reference's are, and not exported here)."""
 
 from .mesh import (  # noqa: F401
     DataMesh,

@@ -23,6 +23,13 @@ SPMD program over a 1-D ``Mesh``.  The port runs one process per rank with
   (:func:`copy_to_model`, :func:`gather_channels`, :func:`gather_rows`,
   :func:`all_reduce_mean`) live here, beside ZeRO-1's reduce-scatter and
   all-gather (:meth:`DataMesh.reduce_scatter`, :meth:`DataMesh.all_gather`).
+- ``spatial.py``'s ``make_space_mesh`` (:104) and ``spatial_model.py``'s
+  ``make_data_space_mesh`` (:306) become :func:`make_space_mesh` and
+  :func:`make_data_space_mesh`, a :class:`SpaceMesh` of a data and a space
+  axis; the halo rows' point-to-point exchange between neighbouring space
+  ranks (:func:`neighbour_exchange`, with its backward) and the height's
+  gather (:func:`gather_height`, whose backward is a reduce-scatter) live
+  here too.
 
 **Backend.**  NCCL when every rank has a card of its own; gloo when the
 ranks run on the CPU or share a card (NCCL refuses two ranks on one
@@ -75,10 +82,17 @@ class DataMesh:
     backend: str
     group: object
     reason: str
+    # the members' ranks in the joined group, in this axis's order (None:
+    # the joined group itself); point-to-point transfers address them
+    members: Optional[List[int]] = None
 
     @property
     def is_chief(self) -> bool:
         return self.rank == 0
+
+    def global_rank(self, index: int) -> int:
+        """The joined group's rank of this axis's member ``index``."""
+        return index if self.members is None else self.members[index]
 
     def _wire(self, t: torch.Tensor):
         """``t`` on the device the backend takes (NCCL: the card; gloo: the
@@ -306,7 +320,7 @@ def _axis(base: DataMesh, members: List[List[int]]) -> DataMesh:
         group = dist.new_group(ranks, backend=base.backend, timeout=TIMEOUT)
         if base.rank in ranks:
             mine = DataMesh(ranks.index(base.rank), len(ranks), base.device, base.backend,
-                            group, base.reason)
+                            group, base.reason, list(ranks))
     _MESHES.append(mine)
     return mine
 
@@ -324,6 +338,14 @@ def make_tp_mesh(n_data: int, n_model: int) -> TPMesh:
     data = _axis(base, [list(range(i, need, n_model)) for i in range(n_model)])
     return TPMesh(base.rank, base.world_size, n_data, n_model, base.device, base.backend,
                   base.reason, data, model)
+
+
+def transfer_route(backend: str) -> str:
+    """How a rank's tensors travel to another rank: a rule on the backend
+    (NCCL keeps them on the card; gloo stages a card's through the host)."""
+    if backend == "nccl":
+        return "nccl, tensors on the card"
+    return "gloo, staged through host memory"
 
 
 @dataclasses.dataclass
@@ -368,11 +390,8 @@ class PPMesh:
 
     @property
     def route(self) -> str:
-        """How boundary tensors travel between stages: a rule on the
-        backend, printed at start-up."""
-        if self.base.backend == "nccl":
-            return "nccl, tensors on the card"
-        return "gloo, staged through host memory"
+        """How boundary tensors travel between stages, printed at start-up."""
+        return transfer_route(self.base.backend)
 
 
 def make_pp_mesh(n_stages: int, n_data: int = 1) -> PPMesh:
@@ -386,6 +405,79 @@ def make_pp_mesh(n_stages: int, n_data: int = 1) -> PPMesh:
                          f"have {base.world_size}")
     data = _axis(base, [list(range(s * n_data, (s + 1) * n_data)) for s in range(n_stages)])
     return PPMesh(n_stages, n_data, base, data)
+
+
+@dataclasses.dataclass
+class SpaceMesh:
+    """This process's place on a 2-D ``data × space`` mesh (the reference's
+    ``make_data_space_mesh``, ``spatial_model.py:306-313``): rank ``r`` has
+    data index ``r // n_space`` and space index ``r % n_space``, so the
+    height shards of one data replica are one contiguous block of ranks.
+    ``space`` is this rank's space axis (the ``n_space`` ranks of its data
+    index, in height order), ``data`` its data axis, ``base`` the whole
+    group (both axes: the prefix's batch norm averages over it); each is a
+    :class:`DataMesh` whose ``rank`` is this rank's index on it."""
+
+    n_data: int
+    n_space: int
+    base: DataMesh
+    data: DataMesh
+    space: DataMesh
+
+    @property
+    def rank(self) -> int:
+        return self.base.rank
+
+    @property
+    def device(self) -> torch.device:
+        return self.base.device
+
+    @property
+    def data_index(self) -> int:
+        return self.base.rank // self.n_space
+
+    @property
+    def space_index(self) -> int:
+        return self.base.rank % self.n_space
+
+    @property
+    def is_chief(self) -> bool:
+        return self.base.rank == 0
+
+    @property
+    def route(self) -> str:
+        """How the halo rows and the gathered tensors travel, printed at
+        start-up."""
+        return transfer_route(self.base.backend)
+
+
+def make_data_space_mesh(n_data: int, n_space: int) -> SpaceMesh:
+    """The joined group as an ``n_data × n_space`` :class:`SpaceMesh`;
+    raises like :func:`make_tp_mesh` when the group has another number of
+    ranks (a rank is one device)."""
+    base = make_mesh()
+    need = n_data * n_space
+    if base.world_size != need:
+        raise ValueError(f"data x space mesh {n_data}x{n_space} needs {need} devices, "
+                         f"have {base.world_size}")
+    space = _axis(base, [list(range(d * n_space, (d + 1) * n_space)) for d in range(n_data)])
+    data = _axis(base, [list(range(i, need, n_space)) for i in range(n_space)])
+    mesh = SpaceMesh(n_data, n_space, base, data, space)
+    if mesh.is_chief:
+        print(f"spatial: mesh data={n_data} x space={n_space}, halo rows and gathered "
+              f"tensors over {mesh.route} ({base.reason})", flush=True)
+    return mesh
+
+
+def make_space_mesh(n_devices: int) -> SpaceMesh:
+    """The joined group as a space mesh of ``n_devices`` height shards (a
+    :class:`SpaceMesh` with one data index); raises when the group has
+    another number of ranks."""
+    base = make_mesh()
+    if base.world_size != n_devices:
+        raise ValueError(f"space mesh of {n_devices} needs {n_devices} devices, "
+                         f"have {base.world_size}")
+    return make_data_space_mesh(1, n_devices)
 
 
 def send_tensors(mesh: DataMesh, tensors: Sequence[torch.Tensor], dst: int) -> None:
@@ -479,6 +571,92 @@ def all_reduce_mean(x: torch.Tensor, axis) -> torch.Tensor:
     """The mean of ``x`` over ``axis``; the backward is the mean of the
     gradients (every rank's normalization reads the mean)."""
     return x if _single(axis) else _AllReduceMean.apply(x, axis)
+
+
+def neighbour_exchange(axis: DataMesh, to_prev: Optional[torch.Tensor],
+                       to_next: Optional[torch.Tensor]) -> tuple:
+    """Send ``to_prev`` to member ``rank - 1`` of ``axis`` and ``to_next``
+    to member ``rank + 1`` (None at the axis's ends, where no member is),
+    and receive what those neighbours send this way → ``(from_prev,
+    from_next)``, each of the shape of the tensors sent (None at the ends).
+    Every send and receive is posted before any is waited on
+    (``batch_isend_irecv``: one NCCL group, or gloo's pairs in flight), so
+    two neighbours never wait on each other's send."""
+    import torch.distributed as dist
+
+    s, n = axis.rank, axis.world_size
+    like = to_next if to_next is not None else to_prev
+    where = axis.device if axis.backend == "nccl" else torch.device("cpu")
+    ops, got = [], {}
+    for side, index, out in (("prev", s - 1, to_prev), ("next", s + 1, to_next)):
+        if not 0 <= index < n:
+            continue
+        peer = axis.global_rank(index)
+        wire = axis._wire(out.detach().contiguous())[0]
+        got[side] = torch.empty(like.shape, dtype=like.dtype, device=where)
+        ops.append(dist.P2POp(dist.isend, wire, peer, axis.group))
+        ops.append(dist.P2POp(dist.irecv, got[side], peer, axis.group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return tuple(got[k].to(like.device) if k in got else None for k in ("prev", "next"))
+
+
+class _HaloRows(torch.autograd.Function):
+    """A height-sharded NCHW block (``spatial.py`` ``halo_exchange``) with
+    ``halo`` rows of each neighbour on ``axis`` above and below it, and
+    ``fill`` rows at the axis's ends."""
+
+    @staticmethod
+    def forward(ctx, x, halo, axis, fill):
+        ctx.halo, ctx.axis = halo, axis
+        s, n = axis.rank, axis.world_size
+        from_prev, from_next = neighbour_exchange(
+            axis, x[:, :, :halo] if s else None, x[:, :, -halo:] if s < n - 1 else None)
+        edge = x.new_full(x[:, :, :halo].shape, fill)
+        return torch.cat([edge if from_prev is None else from_prev, x,
+                          edge if from_next is None else from_next], dim=2)
+
+    @staticmethod
+    def backward(ctx, grad):
+        halo, axis = ctx.halo, ctx.axis
+        s, n = axis.rank, axis.world_size
+        # the gradient of each received halo goes back to the rank it came
+        # from, which adds it to its boundary rows; the fill's is dropped
+        back_prev, back_next = neighbour_exchange(
+            axis, grad[:, :, :halo] if s else None, grad[:, :, -halo:] if s < n - 1 else None)
+        out = grad[:, :, halo:-halo].clone()
+        if back_prev is not None:
+            out[:, :, :halo] += back_prev
+        if back_next is not None:
+            out[:, :, -halo:] += back_next
+        return out, None, None, None
+
+
+class _GatherHeight(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return axis.all_gather(x, 2)
+
+    @staticmethod
+    def backward(ctx, grad):
+        axis = ctx.axis
+        rows = grad.movedim(2, 0)
+        part = axis.reduce_scatter(rows.reshape(-1))
+        return (part.view(rows.shape[0] // axis.world_size, *rows.shape[1:])
+                .movedim(0, 2).contiguous(), None)
+
+
+def gather_height(x: torch.Tensor, axis) -> torch.Tensor:
+    """Every rank's rows (dim 2) of ``x`` concatenated in ``axis`` order.
+    The backward is a reduce-scatter: the sum over the axis of the ranks'
+    gradients, this rank's rows of it.  Where the code after the gather
+    runs whole on every rank of the axis, each rank's gradient of its rows
+    is then ``world_size`` times their share, and a mean over the axis
+    makes it exact (the reference's ``all_gather(tiled=True)`` and
+    ``pmean``, ``spatial_model.py:370``, ``:385``)."""
+    return x if _single(axis) else _GatherHeight.apply(x, axis)
 
 
 def parse_device(spec, device="cuda") -> torch.device:

@@ -241,6 +241,7 @@ def make_batch_grads(
     data_format: str = "NCHW",
     accum: int = 1,
     gather: Optional[Callable] = None,
+    forward: Optional[Callable] = None,
 ) -> Callable:
     """(images, boxes, classes, mask) → metrics for one logical batch; the
     gradient is left in each parameter's ``.grad`` (which must be zero on
@@ -254,11 +255,15 @@ def make_batch_grads(
 
     ``gather`` (:meth:`StepHooks.gather`) maps a micro-batch's head outputs
     and targets to the ones the loss reads: the tensor-parallel step
-    gathers the data axis's rows there.
+    gathers the data axis's rows there.  ``forward``
+    (:meth:`StepHooks.forward`) is the micro-batch's training forward: the
+    spatial step runs the height-sharded prefix there.
     """
     if accum < 1:
         raise ValueError(f"accum must be >= 1, got {accum}")
     dtype = getattr(torch, config.compute_dtype) if config.compute_dtype is not None else None
+    if forward is None:
+        forward = StepHooks().forward
 
     if config.darknet_loss is not None:
         head_keys, head_params = config.darknet_loss
@@ -267,7 +272,7 @@ def make_batch_grads(
         def micro_batch(images, gt_boxes, gt_classes, gt_mask):
             if dtype is not None:
                 images = images.to(dtype)
-            outs = model(images, data_format, train=True, output_keys=head_keys)
+            outs = forward(model, images, data_format, output_keys=head_keys)
             raws = tuple(outs[k].to(torch.float32) for k in head_keys)
             if gather is not None:
                 raws, gt_boxes, gt_classes, gt_mask = gather(raws, gt_boxes, gt_classes, gt_mask)
@@ -281,7 +286,7 @@ def make_batch_grads(
         def micro_batch(images, gt_boxes, gt_classes, gt_mask):
             if dtype is not None:
                 images = images.to(dtype)
-            pred = model(images, data_format, train=True)
+            pred = forward(model, images, data_format)
             if gather is not None:
                 pred, gt_boxes, gt_classes, gt_mask = gather(pred, gt_boxes, gt_classes, gt_mask)
             out, aux = yolo_loss(pred, gt_boxes, gt_classes, gt_mask, config.loss)
@@ -342,8 +347,14 @@ def _clip_gradients(params, config: TrainConfig, sq_norm: Callable = _sq_norm) -
 
 class StepHooks:
     """What a parallel step changes in the single-device step of
-    :func:`make_train_step`: ``parallel/dp.py``, ``zero.py`` and ``tp.py``
-    subclass it.  Every method's default is the single-device behaviour."""
+    :func:`make_train_step`: ``parallel/dp.py``, ``zero.py``, ``tp.py`` and
+    ``spatial_model.py`` subclass it.  Every method's default is the
+    single-device behaviour."""
+
+    def forward(self, model: YoloModel, images: Tensor, data_format: str, **kw):
+        """A micro-batch's training forward (``output_keys`` in ``kw`` for
+        the darknet loss's raw head outputs)."""
+        return model(images, data_format, train=True, **kw)
 
     def gather(self, outputs, gt_boxes, gt_classes, gt_mask):
         """Before the loss: a micro-batch's head outputs (a MergedDetection,
@@ -393,10 +404,12 @@ def make_train_step(
     step (``parallel/dp.py``) averages the gradients, the BN statistics and
     the metrics over the ranks in ``reduce``; ZeRO-1 (``zero.py``) updates
     this rank's slice of the parameters in ``update``; tensor parallelism
-    (``tp.py``) gathers the heads before the loss and reduces over its mesh.
+    (``tp.py``) gathers the heads before the loss and reduces over its mesh;
+    the spatial step (``spatial_model.py``) runs its own ``forward``.
     """
     hooks = StepHooks() if hooks is None else hooks
-    batch_grads = make_batch_grads(model, config, data_format, accum, hooks.gather)
+    batch_grads = make_batch_grads(model, config, data_format, accum, hooks.gather,
+                                   hooks.forward)
     schedule = make_schedule_fn(config.lr)
     params = list(model.parameters())
 
