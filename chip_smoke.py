@@ -6,8 +6,9 @@
 Phases, each printing one JSON line; any failure exits non-zero with no
 result line:
 
-1. build  — compile every CUDA kernel of yolodl_torch/csrc with nvcc (one
-   process per source, started together) into build/yolodl_torch/.
+1. build  — compile every CUDA kernel of yolodl_torch/csrc with nvcc, and
+   the host libraries this machine can build with g++ (one process per
+   source, all started together), into build/yolodl_torch/.
 2. kernel — B1's kernels against their plain PyTorch versions on the card.
    nms_conflict_bits must give the plain version's bits exactly
    (torch.equal) for f32 and bf16 boxes, greedy and diou (β 0.6), one group
@@ -88,7 +89,26 @@ result line:
    ms per step by span (data wait, the batch's H2D copy on the card, the
    synchronized step, the rest of the loop), evaluation ms, peak memory
    and detect img/s, with the card's name and power limit.
-6. augment — the device augmentation (data/device_augment.py, ROADMAP
+6. native_loader — the port's host libraries (data/native_loader.py,
+   ROADMAP A11b): csrc/host_augment.cpp (the pipeline's affine warp and HSV
+   jitter) and, where g++ finds jpeglib.h and png.h, csrc/host_decode.cpp
+   (JPEG/PNG decode + letterbox), built by g++ -O3 -march=native with the
+   CUDA kernels in phase build.  The line gives each library's path and
+   compile seconds, g++'s version, what -march=native resolves to and the
+   decode route with the probe's reason (PIL on a machine without those
+   headers; where it is native, tests/test_data.py's decode gates against
+   PIL apply).  Gates over the 16 records of one batch of phase augment's
+   recipe at 608², each with its own jitter and affine draws, the native
+   route against the plain numpy/scipy version (selected by the port's
+   switch, native_loader._aug_lib_cache = False): every warp value within
+   1e-5 except at border ties (a source coordinate within 1e-9 of an edge,
+   where the two may round to opposite sides), whose differing values are
+   counted and may be at most 1e-4 of the values; every jitter value within
+   3e-5.  Then ms a record of each route's warp and jitter (median of the
+   16), and the recipe's host records/s through TrainingStream: native at
+   1 and 4 workers, plain at 1, beside the host's CPU model and
+   os.cpu_count() and the card's name and power limit.
+7. augment — the device augmentation (data/device_augment.py, ROADMAP
    A13).  First the program at the flagship's width: 64 seeded records at
    608² (smooth colour fields with noise on the u8/255 grid, 1-7 boxes),
    scripts/bench_device_augment.py's recipe (mosaic 0.5 with margin 0.25,
@@ -102,8 +122,10 @@ result line:
    synchronized wall ms, device ms, kernels and host syncs (profiler), and
    the peak memory above the pack; the pack's H2D copy, u8 against f32.
    Then the host side it frees: the same recipe through the port's host
-   pipeline (every pixel on the host) and through the deferred host prep
-   (draws, labels, the u8 pack), one worker each, records/s.  Last,
+   pipeline (every pixel on the host, jitter and warp on the native route
+   of phase native_loader; the line names the route) and through the
+   deferred host prep (draws, labels, the u8 pack), one worker each,
+   records/s.  Last,
    train_main on cfg/train.json5 as phase train_main changes it, plus
    preprocessor.pipeline.device "cuda", logging.enable_images false (true
    keeps the CPU pipeline, as in the reference) and ordered records: 5
@@ -119,7 +141,7 @@ result line:
    (data wait, the u8 pack's H2D copy, the synchronized step, the rest),
    the program's ms, device ms and kernels a batch, peak memory, beside
    phase train_main's numbers, and the card's name and power limit.
-7. wgrad  — conv2d_lowch and conv2d_db (yolodl_torch.kernels), forward and
+8. wgrad  — conv2d_lowch and conv2d_db (yolodl_torch.kernels), forward and
    backward at each stride-1 low-channel conv shape of yolov4-csp at 608²,
    batch 8, bf16, with both launch counters zeroed right before and read
    right after: each kernel must have launched once per backward.  dW is
@@ -136,7 +158,7 @@ result line:
    flagship lacks (odd widths, 3, 40 and 130 input channels, 20, 24 and 72
    output channels, k 1, 3 and 5), bf16 and f32, against the plain version
    within the same 1e-4, again with identical bits from two launches.
-8. train  — first one f32 SGD step of yolov4-csp at 64², batch 2, on the
+9. train  — first one f32 SGD step of yolov4-csp at 64², batch 2, on the
    card and on the CPU from the same weights and batch: losses within
    rel 1e-4, every updated parameter within 25 % of its tensor's largest
    update plus 4 f32 ulps of its largest entry (see train_card_vs_cpu).
@@ -148,7 +170,7 @@ result line:
    wgrad launch.  Prints step ms (CUDA events), img/s, peak memory, a
    profile of one step (device ms, kernels, the costliest, the card's idle
    share) and of its parts (forward, loss, backward, optimizer).
-9. darknet_loss — the darknet-exact loss (yolodl_torch/loss/darknet_loss.py),
+10. darknet_loss — the darknet-exact loss (yolodl_torch/loss/darknet_loss.py),
    TF32 off for its f32 comparisons.  First the card against the CPU:
    yolov4-csp's three head params at 608² and Gaussian_yolov3_BDD's at
    512², seeded f32 NCHW raws (batch 2) and 64 truth rows an image (40
@@ -178,7 +200,7 @@ result line:
    steps/s, ms per step by span (data wait, the synchronized step, the
    loss inside it, the rest), the loss's share of the step, peak memory,
    and the card's name and power limit.
-10. deploy — yolov4-csp at 608² deployed as a user would (ROADMAP A11c),
+11. deploy — yolov4-csp at 608² deployed as a user would (ROADMAP A11c),
    and ROADMAP A4's node kinds on the card.  The seed-0 model with seeded
    BN statistics goes to a .weights file; tool_main fold-weights (in this
    process) writes the BN-free pair, whose cfg must hold no
@@ -205,7 +227,7 @@ result line:
    ms and kernels (profiler), and the load seconds, and each exported
    program's aten calls; the workspace,
    build/chip_smoke_deploy/, is removed at the end.
-11. classify — the dense and recurrent node kinds and classify_main
+12. classify — the dense and recurrent node kinds and classify_main
    (ROADMAP A11d + A12).  First the f32 eval forwards of vgg-16 (256²,
    fc1 32768 -> 4096, 2 images), alexnet (227²), rnn and gru (one time
    step), lstm.train and crnn.train (one sequence of 576 one-hot bytes)
@@ -238,7 +260,7 @@ result line:
    through zoo.load_darknet_model bit-identical, over 40 frames of one
    synthetic sequence: B1's counters zeroed right before and read right
    after, one launch of each kernel per batch; img/s.
-12. dp    — data-parallel training and multi-device inference (ROADMAP
+13. dp    — data-parallel training and multi-device inference (ROADMAP
    A14a, yolodl_torch/parallel/).  First make_dp_train_step at world
    size 1 over NCCL (one rank with a card of its own): the flagship at
    608², b16, bf16, default TrainConfig(), phase train's batch, 2 steps
@@ -264,7 +286,7 @@ result line:
    kernel launched once per replica per served batch; the two replicas'
    detections equal to the b4 replica's (the same forward shape), and
    the share equal to the b8 replica's is printed.
-13. tp    — ZeRO-1 and tensor parallelism (ROADMAP A14b,
+14. tp    — ZeRO-1 and tensor parallelism (ROADMAP A14b,
    yolodl_torch/parallel/zero.py and tp.py).  First make_zero_train_step
    at world size 1 over NCCL: the flagship at 608², b16, bf16, default
    TrainConfig(), phase train's batch, 2 steps against the plain step
@@ -299,7 +321,7 @@ result line:
    from rank 1, the last loading into a single-device port model whose
    forward is finite, and each B1 kernel launched once per evaluated
    batch on rank 0.
-14. pp    — GPipe pipeline parallelism (ROADMAP A14c,
+15. pp    — GPipe pipeline parallelism (ROADMAP A14c,
    yolodl_torch/parallel/pipeline.py).  2 ranks on cuda:0 over gloo
    (launch_ranks, pp_rank): rank 0 first takes one f32 SGD step (lr 1e-2)
    of the flagship at 608², b16 as 2 micro-batches, through the
@@ -324,7 +346,7 @@ result line:
    launched once per evaluated batch on rank 0 (none on rank 1); last,
    detect_main in this process on that checkpoint over the workspace's 8
    images, one launch of each B1 kernel per batch of 4.
-15. spatial — spatial parallelism (ROADMAP A14d,
+16. spatial — spatial parallelism (ROADMAP A14d,
    yolodl_torch/parallel/spatial.py and spatial_model.py): the image
    height cut over 2 ranks on cuda:0 over gloo (launch_ranks,
    spatial_rank), TF32 off and cuDNN deterministic for f32.  yolov4-csp
@@ -354,7 +376,7 @@ result line:
    0.5; in f32, rounding alone moves a BN scale's change by 3e-2).  Last,
    three timed bf16 steps (SGD, one warm-up) of each: step ms and the host
    ms inside the transfers.
-16. card  — `nvidia-smi --query-gpu=name,power.limit` as it prints it.
+17. card  — `nvidia-smi --query-gpu=name,power.limit` as it prints it.
 
 After the last phase a line gives each phase's wall seconds (`timing`).
 The line before the last lists the kernels; the last line is
@@ -365,6 +387,7 @@ comparison on the card (cuDNN would otherwise run f32 convs in TF32).
 from __future__ import annotations
 
 import collections
+import contextlib
 import io
 import json
 import os
@@ -428,6 +451,11 @@ AUGMENT_ROTATE = 10.0         # the bench script's recipe: rotation up to 10°, 
 AUGMENT_TIMED = 20            # program calls timed by CUDA events, after 10 warm-up calls
 AUGMENT_HOST_BATCHES = 1      # host batches timed per route, after one warm-up batch
 AUGMENT_STEPS = 5             # train_main steps: an evaluation at step 3
+NATIVE_WARP_TOL = 1e-5        # native warp vs scipy (tests/test_data.py:925), off border ties
+NATIVE_TIE_SHARE = 1e-4       # border-tie values beyond the tolerance: at most this share
+NATIVE_JITTER_TOL = 3e-5      # native jitter vs numpy (tests/test_data.py:940)
+NATIVE_WORKERS = 4            # the native route's host rate at 1 and this many workers
+NATIVE_HOST_BATCHES = 3       # native batches timed per rate, after one warm-up batch
 AUGMENT_MEAN_TOL = 1e-5       # card vs CPU program: mean |Δ| ...
 AUGMENT_FLIP_TOL = 0.002      # ... and the share of pixels with |Δ| > 1e-3 (border, hue sextant)
 BF16_BOX_TOL = 0.05      # bf16 vs f32 forward at 608²: max|Δ| / max|f32| of cycxhw
@@ -2109,6 +2137,222 @@ def phase_train_main(iou):
 
 
 # ---------------------------------------------------------------------------
+# phase native_loader: the host libraries (data/native_loader.py)
+
+
+def host_cpu() -> dict:
+    """The host's CPU model (/proc/cpuinfo, else lscpu) and os.cpu_count(),
+    for every host rate."""
+    lines = []
+    try:
+        with open("/proc/cpuinfo") as f:
+            lines = f.read().splitlines()
+    except OSError:
+        pass
+    try:
+        lines += subprocess.run(["lscpu"], capture_output=True, text=True,
+                                timeout=30).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        pass
+    model = next((line.split(":", 1)[1].strip() for line in lines
+                  if line.lower().startswith(("model name", "model name:"))), "unknown")
+    return {"cpu": model, "cpu_count": os.cpu_count()}
+
+
+@contextlib.contextmanager
+def plain_host_route():
+    """The jitter and the warp on their plain numpy/scipy versions, through
+    the port's switch (data/native_loader.py); the native route again on
+    exit."""
+    from yolodl_torch.data import native_loader
+
+    saved = native_loader._aug_lib()
+    native_loader._aug_lib_cache = False
+    try:
+        yield
+    finally:
+        native_loader._aug_lib_cache = saved
+
+
+def border_ties(m_rc: np.ndarray, b_rc: np.ndarray, h: int, w: int,
+                eps: float = 1e-9) -> np.ndarray:
+    """[h, w] bool: the output pixels whose source coordinate
+    ``m_rc @ (row, col) + b_rc``, recomputed in float64, lies within ``eps``
+    of an edge (0 or size-1) of either axis.  There the C++ warp and scipy
+    may sum the coordinate to opposite sides of the edge, so that one gives
+    cval and the other the edge pixel: a difference of up to a whole pixel
+    value that is rounding, not a fault."""
+    rows, cols = np.meshgrid(np.arange(h, dtype=np.float64), np.arange(w, dtype=np.float64),
+                             indexing="ij")
+    m = np.asarray(m_rc, np.float64)
+    b = np.asarray(b_rc, np.float64)
+    src_r = m[0, 0] * rows + m[0, 1] * cols + b[0]
+    src_c = m[1, 0] * rows + m[1, 1] * cols + b[1]
+    return ((np.abs(src_r) < eps) | (np.abs(src_r - (h - 1)) < eps)
+            | (np.abs(src_c) < eps) | (np.abs(src_c - (w - 1)) < eps))
+
+
+def native_gates(loader) -> dict:
+    """The 16 records of one augment_recipe batch at AUGMENT_SIZE², each with
+    its own draws of the recipe's jitter and affine: the native warp and
+    jitter against their plain versions, and each one's ms a record."""
+    from yolodl_torch.data import native_loader
+    from yolodl_torch.data.affine import pixel_affine, warp_image
+
+    recipe = augment_recipe(False)
+    jitter = recipe.color_jitter
+    times = collections.defaultdict(list)
+    warp = {"max_abs_err_off_ties": 0.0, "tie_pixels": 0, "tie_values": 0,
+            "tie_values_over_tol": 0, "max_abs_err_at_ties": 0.0, "values": 0,
+            "values_over_tol_off_ties": 0, "identity_draws": 0}
+    jitter_err = 0.0
+
+    def timed(key, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        times[key].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    for i in range(AUGMENT_BATCH):
+        image = loader.items[i][0]
+        rng = np.random.default_rng(i)
+        shifts = jitter.sample(rng)
+        transform = recipe.random_affine.sample_transform(rng)
+        warp["identity_draws"] += int(np.allclose(transform, np.eye(3)))
+        m_rc, b_rc = pixel_affine(transform, AUGMENT_SIZE, AUGMENT_SIZE)
+        nat_warp = timed("warp_native", native_loader.affine_warp_native, image, m_rc, b_rc)
+        nat_jit = timed("jitter_native", native_loader.color_jitter_native, image, *shifts)
+        with plain_host_route():
+            plain_warp = timed("warp_plain", warp_image, image, m_rc, b_rc)
+            plain_jit = timed("jitter_plain", jitter.apply, image, *shifts)
+        ties = np.broadcast_to(border_ties(m_rc, b_rc, AUGMENT_SIZE, AUGMENT_SIZE), image.shape)
+        diff = np.abs(nat_warp - plain_warp)
+        over = diff > NATIVE_WARP_TOL
+        warp["values"] += diff.size
+        warp["tie_pixels"] += int(ties[0].sum())
+        warp["tie_values"] += int(ties.sum())
+        warp["tie_values_over_tol"] += int((over & ties).sum())
+        warp["values_over_tol_off_ties"] += int((over & ~ties).sum())
+        warp["max_abs_err_off_ties"] = max(warp["max_abs_err_off_ties"],
+                                           float(diff[~ties].max(initial=0.0)))
+        warp["max_abs_err_at_ties"] = max(warp["max_abs_err_at_ties"],
+                                          float(diff[ties].max(initial=0.0)))
+        jitter_err = max(jitter_err, float(np.abs(nat_jit - plain_jit).max()))
+    # a tie pixel counts against the gate only where the two routes differ
+    warp["tie_share"] = warp["tie_values_over_tol"] / warp["values"]
+    ms = {k: statistics.median(v) for k, v in times.items()}
+    line = {"records": AUGMENT_BATCH, "warp": warp, "jitter_max_abs_err": jitter_err,
+            "ms_a_record": ms,
+            "native_speedup": {"warp": ms["warp_plain"] / ms["warp_native"],
+                               "jitter": ms["jitter_plain"] / ms["jitter_native"]}}
+    failed = []
+    if warp["values_over_tol_off_ties"] or warp["max_abs_err_off_ties"] > NATIVE_WARP_TOL:
+        failed.append(f"warp off border ties beyond {NATIVE_WARP_TOL}")
+    if warp["tie_share"] > NATIVE_TIE_SHARE:
+        failed.append(f"border ties {warp['tie_share']} of the values > {NATIVE_TIE_SHARE}")
+    if not jitter_err <= NATIVE_JITTER_TOL:
+        failed.append(f"jitter {jitter_err} > {NATIVE_JITTER_TOL}")
+    return line, failed
+
+
+def native_host_rates(loader) -> dict:
+    """The recipe through the port's host pipeline, records/s: the native
+    route at 1 and NATIVE_WORKERS workers, the plain route at 1."""
+    import dataclasses
+
+    from yolodl_torch.data.pipeline import TrainingStream
+
+    def rate(workers, batches):
+        config = dataclasses.replace(augment_recipe(False), workers=workers)
+        stream = iter(TrainingStream(list(range(AUGMENT_RECORDS)), loader, config))
+        try:
+            next(stream)
+            t0 = time.perf_counter()
+            for _ in range(batches):
+                next(stream)
+            return batches * AUGMENT_BATCH / (time.perf_counter() - t0)
+        finally:
+            stream.close()
+
+    rates = {"native_1_worker": rate(1, NATIVE_HOST_BATCHES),
+             f"native_{NATIVE_WORKERS}_workers": rate(NATIVE_WORKERS, NATIVE_HOST_BATCHES)}
+    with plain_host_route():
+        rates["plain_1_worker"] = rate(1, 1)
+    return rates
+
+
+def native_decode_gates(root) -> dict:
+    """Where the decode route is native: tests/test_data.py's decode gates
+    (:568-569, :583) on the port's NativeLoader against PIL."""
+    from PIL import Image
+
+    from yolodl_torch.data.cache import OnDemandLoader
+    from yolodl_torch.data.native_loader import NativeLoader
+    from yolodl_torch.data.records import FileRecord
+
+    grad = np.zeros((40, 60, 3), np.uint8)
+    grad[..., 0] = np.linspace(0, 255, 60, dtype=np.uint8)[None, :]
+    grad[..., 1] = np.linspace(0, 255, 40, dtype=np.uint8)[:, None]
+    Image.fromarray(grad).save(os.path.join(root, "grad.png"))
+    boxes = np.asarray([[12.0, 20.0, 10.0, 16.0]])
+    rec = FileRecord(os.path.join(root, "grad.png"), 40, 60, boxes, np.zeros(1, np.int32))
+    a, b = NativeLoader((32, 32)).load(rec), OnDemandLoader((32, 32)).load(rec)
+    noise = np.random.default_rng(0).uniform(0, 255, (40, 60, 3)).astype(np.uint8)
+    Image.fromarray(noise).save(os.path.join(root, "x.jpg"), quality=95)
+    jrec = FileRecord(os.path.join(root, "x.jpg"), 40, 60, np.zeros((0, 4)),
+                      np.zeros((0,), np.int32))
+    line = {"png_mean_abs": float(np.abs(a.image - b.image).mean()),
+            "png_boxes_max_abs": float(np.abs(a.boxes - b.boxes).max()),
+            "jpeg_mean_abs": float(np.abs(NativeLoader((48, 48)).load(jrec).image
+                                          - OnDemandLoader((48, 48)).load(jrec).image).mean())}
+    if not (line["png_mean_abs"] < 0.02 and line["png_boxes_max_abs"] <= 1e-5
+            and line["jpeg_mean_abs"] < 0.03):
+        raise AssertionError(f"native_loader: decode gates failed: {line}")
+    return line
+
+
+def phase_native_loader() -> None:
+    """The port's host libraries (ROADMAP A11b): see the module docstring."""
+    import shutil
+
+    from yolodl_torch.data import native_loader
+    from yolodl_torch.data.cache import make_decode_loader
+    from yolodl_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    root = os.path.join(REPO, "build", "chip_smoke_native")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        native_loader._aug_lib()  # built by build_all, or raises
+        _, reason = _build.decode_probe()
+        decode = make_decode_loader((AUGMENT_SIZE, AUGMENT_SIZE))  # says its route on stderr
+        route = "native" if isinstance(decode, native_loader.NativeLoader) else "PIL"
+        line = {"phase": "native_loader",
+                "libraries": {n: {"path": str(_build.library_path(n).relative_to(REPO)),
+                                  "build_seconds": _build.BUILD_SECONDS.get(n)}
+                              for n in _build.host_libraries()},
+                "gxx": _build.gxx_identity().decode().splitlines()[0],
+                "march": _build.resolved_march(),
+                "decode": {"route": route, "probe": reason,
+                           "no_native_decode": bool(os.environ.get("YDL_NO_NATIVE_DECODE"))},
+                "image_size": AUGMENT_SIZE, "batch": AUGMENT_BATCH, **host_cpu()}
+        if route == "native":
+            line["decode"]["gates"] = native_decode_gates(root)
+        loader = AugmentLoader(AUGMENT_SIZE, AUGMENT_RECORDS)
+        line["gates"], failed = native_gates(loader)
+        line["host_records_per_s"] = native_host_rates(loader)
+        line["seconds"] = time.perf_counter() - t0
+        line["card"] = card_line()
+        line["failed"] = failed
+        emit(line)
+        if failed:
+            raise AssertionError(f"native_loader: {failed}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 # phase augment: the device augmentation (data/device_augment.py)
 
 
@@ -2257,8 +2501,12 @@ def augment_host_rates(loader) -> dict:
             rates[route] = AUGMENT_HOST_BATCHES * AUGMENT_BATCH / (time.perf_counter() - t0)
         finally:
             stream.close()
+    from yolodl_torch.data import native_loader
+
     return {"records_per_s": rates, "deferred_over_host": rates["deferred_prep"] /
-            rates["host_pipeline"], "workers": 1}
+            rates["host_pipeline"], "workers": 1,
+            "host_pipeline_route": "native" if native_loader._aug_lib_cache else "plain",
+            **host_cpu()}
 
 
 def augment_train_main(iou) -> dict:
@@ -5010,7 +5258,9 @@ def main() -> int:
     from yolodl_torch.kernels import _build, iou
 
     emit({"phase": "build", "seconds": _build.build_all(),
-          "libraries": [str(_build.library_path(n).relative_to(REPO)) for n in _build.SOURCES]})
+          "libraries": [str(_build.library_path(n).relative_to(REPO))
+                        for n in (*_build.SOURCES, *_build.host_libraries())],
+          "compile_seconds": _build.BUILD_SECONDS})
     seconds = {}
 
     def run(name, fn, *args):  # each phase's wall seconds, for the timing line
@@ -5029,6 +5279,7 @@ def main() -> int:
                    **run("cli", phase_cli, iou)}
         train_main_launches, train_main_summary = run("train_main", phase_train_main, iou)
         by_path.update(train_main_launches)
+        run("native_loader", phase_native_loader)
         by_path.update(run("augment", phase_augment, iou, train_main_summary))
         wgrad_launches, wgrad = run("wgrad", phase_wgrad)
         train_ms = run("train", phase_train)

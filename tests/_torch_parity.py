@@ -2,6 +2,7 @@
 reference and the port with the same weights, random predictions and
 targets, and the training tests' models, batches and step loops."""
 
+import contextlib
 import json
 import os
 
@@ -1049,10 +1050,25 @@ def start_ranks(cmd, n, env=None):
 
 
 def wait_ranks(procs, timeout=120):
-    """Wait for every rank; each must exit 0."""
-    for r, p in enumerate(procs):
-        _, err = p.communicate(timeout=timeout)
-        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{err}"
+    """Wait for every rank; each must exit 0.  A rank that fails or does
+    not end within ``timeout`` fails the test with every rank's exit code
+    and stderr (the others are killed first), so that a fault one rank
+    causes shows beside the rank where it surfaced."""
+    import subprocess
+
+    errs, late = [], False
+    for p in procs:
+        try:
+            errs.append(p.communicate(timeout=None if late else timeout)[1])
+        except subprocess.TimeoutExpired:
+            late = True
+            for q in procs:
+                q.kill()
+            errs.append(p.communicate()[1])
+    codes = [p.returncode for p in procs]
+    assert not late and codes == [0] * len(procs), "\n".join(
+        f"rank {r} exited {c}{' (killed after the timeout)' if late else ''}:\n{e}"
+        for r, (c, e) in enumerate(zip(codes, errs)))
 
 
 def dp_batches(n, batch, size=TRAIN_SIZE, seed=0, num_classes=80):
@@ -1732,3 +1748,92 @@ def spatial_batch(rows=4, size=64, seed=4, duplicate=2):
     mask = np.zeros((rows, 4), bool)
     mask[:, 0] = True
     return images, boxes, classes, mask
+
+
+# -- the reference's native library (test_torch_native_*.py and the stream
+# tests that hold both packages on one route)
+
+NATIVE_DIR = os.path.join(REPO, "native")
+_reference_native_path = None
+
+
+def reference_native_command(out):
+    """native/build.sh's g++ line, with the source's path made absolute and
+    the output put at ``out``."""
+    import shlex
+
+    with open(os.path.join(NATIVE_DIR, "build.sh")) as f:
+        line = next(l for l in f if l.startswith("g++ "))
+    args = shlex.split(line)
+    args[args.index("loader.cpp")] = os.path.join(NATIVE_DIR, "loader.cpp")
+    args[args.index("-o") + 1] = str(out)
+    return args
+
+
+def build_reference_native():
+    """The reference's native/loader.cpp built with native/build.sh's
+    command into a temp dir, once a test run (xdist workers wait on a file
+    lock, and a name hashed from the source and the compiler keeps runs of
+    other checkouts apart); nothing is written into native/.  → the
+    library's path."""
+    global _reference_native_path
+    if _reference_native_path is not None:
+        return _reference_native_path
+    import fcntl
+    import hashlib
+    import subprocess
+    import tempfile
+
+    from yolodl_torch.kernels import _build
+
+    digest = hashlib.sha256()
+    with open(os.path.join(NATIVE_DIR, "loader.cpp"), "rb") as f:
+        digest.update(f.read())
+    digest.update(" ".join(reference_native_command("out")).encode())
+    digest.update(_build.gxx_identity())
+    root = os.path.join(tempfile.gettempdir(), "yolodl_reference_native")
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, f"libyolodl_loader_{digest.hexdigest()[:16]}.so")
+    with open(os.path.join(root, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(path):
+            tmp = f"{path}.{os.getpid()}.tmp"
+            subprocess.run(reference_native_command(tmp), check=True, capture_output=True)
+            os.replace(tmp, path)
+    _reference_native_path = path
+    return path
+
+
+@contextlib.contextmanager
+def reference_native_route():
+    """The reference on its native route, as the port is by default:
+    ``native_loader._LIB_PATH`` at the temp build and ``_aug_lib_cache``
+    reset; both are put back afterwards.  For a comparison that runs the
+    reference in this process and the port (in- or out of process) on its
+    default route."""
+    from yolodl_tpu.data import native_loader as j_native
+
+    saved = j_native._LIB_PATH, j_native._aug_lib_cache
+    j_native._LIB_PATH, j_native._aug_lib_cache = build_reference_native(), None
+    try:
+        yield j_native
+    finally:
+        j_native._LIB_PATH, j_native._aug_lib_cache = saved
+
+
+@pytest.fixture
+def reference_native():
+    with reference_native_route() as j_native:
+        yield j_native
+
+
+@pytest.fixture
+def plain_route(monkeypatch):
+    """Both packages' jitter and warp on their plain numpy/scipy versions,
+    through each one's own switch."""
+    from yolodl_torch.data import native_loader as t_native
+    from yolodl_tpu.data import native_loader as j_native
+
+    monkeypatch.setattr(t_native, "_aug_lib_cache", False)
+    monkeypatch.setattr(j_native, "_aug_lib_cache", False)
+    return t_native

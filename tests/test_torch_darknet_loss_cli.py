@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import reference_native  # noqa: F401
 from _torch_parity import run_main as run
 from _torch_parity import write_darknet_train_workspace, write_train_workspace
 from test_torch_train_cli import logged
@@ -38,8 +39,9 @@ torch.set_num_threads(2)
 TAGS = ("loss/total_loss", "benchmark/num_matched", "benchmark/avg_iou", "benchmark/no_obj")
 
 
-def test_port_cli_matches_reference_cli_from_one_checkpoint(tmp_path, monkeypatch, capsys):
-    monkeypatch.setenv("YDL_NO_NATIVE_DECODE", "1")  # both decode with PIL
+def test_port_cli_matches_reference_cli_from_one_checkpoint(tmp_path, monkeypatch, capsys,
+                                                            reference_native):
+    monkeypatch.setenv("YDL_NO_NATIVE_DECODE", "1")  # both decode with PIL, jitter natively
     first = write_darknet_train_workspace(tmp_path / "first")
     run(j_train, first, "--max-steps", "1")
     (ckpt,) = glob.glob(str(tmp_path / "first" / "logs" / "*" / "checkpoints" / "*.ckpt"))

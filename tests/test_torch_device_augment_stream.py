@@ -8,7 +8,9 @@ reference's deferred stream and against the port's own host pipeline.
   also replays the uninterrupted stream's batches;
 - the augmented images against the port's CPU pipeline on the same seeds,
   with the bounds of ``tests/test_device_augment.py``'s stream cases
-  (labels identical there too);
+  (labels identical there too); the host pipeline jitters and warps on
+  its plain numpy/scipy route there, whose formulas the program
+  reproduces;
 - ``apply_device_augmentation`` (CPU) against the reference's (its jitted
   program) on a rotating (two-pass warp) and a rotation-free recipe:
   labels identical, images within mean |Δ| ≤ 1e-5 and at most 0.2 % of
@@ -19,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import plain_route  # noqa: F401
 from yolodl_tpu.data import device_augment as j_da
 from yolodl_tpu.data import pipeline as j_pipe
 from yolodl_tpu.data.affine import RandomAffine as JRandomAffine
@@ -150,6 +153,7 @@ def device_vs_host(name, batches=2, **kw):
     return out
 
 
+@pytest.mark.usefixtures("plain_route")
 class TestStreamAgainstHostPipeline:
     def test_mix_only_exact(self):
         for host_rec, images in device_vs_host("mix_only"):

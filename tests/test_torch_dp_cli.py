@@ -29,7 +29,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import REPO, first_batches, logged, rank_streams, write_first_checkpoint
+from _torch_parity import (REPO, first_batches, logged, rank_streams, reference_native,  # noqa: F401
+                           reference_native_route, write_first_checkpoint)
 from _torch_parity import write_train_workspace as write_workspace
 from yolodl_tpu.cli import train_main as j_train
 
@@ -86,7 +87,8 @@ def dp_run(tmp_path_factory):
             [sys.executable, "-m", "yolodl_torch.cli.train_main", "--config-file", config,
              "--max-steps", "4", "--device", "cpu"],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=REPO)
-        per_rank = first_batches(rank_streams("ref", config), 3)
+        with reference_native_route():  # the port's ranks jitter natively too
+            per_rank = first_batches(rank_streams("ref", config), 3)
         global_batches = [tuple(np.concatenate([getattr(per_rank[r][i], f) for r in range(2)])
                                 for f in ("images", "boxes", "classes", "mask"))
                           for i in range(3)]
@@ -124,9 +126,9 @@ def test_checkpoints_come_from_rank_0_only(dp_run):
     assert logged(other) == logged(chief)
 
 
-def test_rank_streams_match_the_reference_streams(dp_run, monkeypatch):
+def test_rank_streams_match_the_reference_streams(dp_run, monkeypatch, reference_native):
     """records[r::2] with seed r, the port's stream against the
-    reference's, bit for bit, for both ranks."""
+    reference's, bit for bit, for both ranks, both jittering natively."""
     monkeypatch.setenv("YDL_NO_NATIVE_DECODE", "1")
     config = dp_run[1]
     ref = first_batches(rank_streams("ref", config), 3)

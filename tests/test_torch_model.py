@@ -140,7 +140,7 @@ def test_port_imports_neither_jax_nor_reference():
         "    'cli.tool_main', 'ops.recurrent', 'train.classifier', 'cli.classify_main',\n"
         "    'utils.tensor_ext', 'units', 'data.device_augment', 'parallel.mesh',\n"
         "    'parallel.dp', 'parallel.zero', 'parallel.tp', 'parallel.spatial',\n"
-        "    'parallel.spatial_model')}\n"
+        "    'parallel.spatial_model', 'data.native_loader')}\n"
         "missing = sorted(need - set(sys.modules))\n"
         "print(n, bad, missing)\n"
         "sys.exit(1 if bad or missing or n < 50 else 0)\n"

@@ -7,7 +7,10 @@ Every mixer and the stream draw from numpy generators keyed as the
 reference keys them, so the comparisons are exact: the same records and
 the same seeds give bit-identical batches (images, boxes, classes, mask),
 with mosaic, MixUp, CutMix, colour jitter and the random affine all on,
-also when a stream resumes at ``start_records``.
+also when a stream resumes at ``start_records``.  Both packages jitter and
+warp on their native route (the ``reference_native`` fixture builds the
+reference's ``native/loader.cpp`` into a temp dir), as the port does by
+default; tests/test_torch_native_stream.py also holds the plain routes.
 """
 
 import threading
@@ -17,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import reference_native  # noqa: F401
 from yolodl_tpu.data import affine as j_affine
 from yolodl_tpu.data import color as j_color
 from yolodl_tpu.data import mosaic as j_mosaic
@@ -31,6 +35,7 @@ from yolodl_torch.data import records as t_records
 from yolodl_torch.utils import timing as t_timing
 
 torch.set_num_threads(2)
+pytestmark = pytest.mark.usefixtures("reference_native")
 
 N_RECORDS, SIZE = 11, 24
 

@@ -36,7 +36,8 @@ import numpy as np
 import pytest
 
 from _torch_parity import (REPO, assert_trees_close, first_batches, flat_leaves, logged,
-                           random_targets, rank_streams, start_ranks, write_first_checkpoint)
+                           random_targets, rank_streams, reference_native_route, start_ranks,
+                           write_first_checkpoint)
 from _torch_parity import write_train_workspace as write_workspace
 from yolodl_tpu.cli import train_main as j_train
 
@@ -120,7 +121,8 @@ def start(config, env):
 
 
 def global_batches(config, world, n=3):
-    per_rank = first_batches(rank_streams("ref", config, world), n)
+    with reference_native_route():  # the port's ranks jitter natively too
+        per_rank = first_batches(rank_streams("ref", config, world), n)
     return [tuple(np.concatenate([getattr(per_rank[r][i], f) for r in range(world)])
                   for f in ("images", "boxes", "classes", "mask"))
             for i in range(n)]

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import reference_native  # noqa: F401
 from _torch_parity import run_main as run
 from _torch_parity import write_darknet_train_workspace
 from _torch_parity import write_train_workspace as write_workspace
@@ -52,8 +53,9 @@ def last_checkpoint(run_dir):
         return {k: (f[k].dtype, f[k].shape) for k in f.files if k != "__meta__"}
 
 
-def test_port_cli_matches_reference_cli_from_one_checkpoint(tmp_path, monkeypatch, capsys):
-    monkeypatch.setenv("YDL_NO_NATIVE_DECODE", "1")  # both decode with PIL
+def test_port_cli_matches_reference_cli_from_one_checkpoint(tmp_path, monkeypatch, capsys,
+                                                            reference_native):
+    monkeypatch.setenv("YDL_NO_NATIVE_DECODE", "1")  # both decode with PIL, jitter natively
     first = write_workspace(tmp_path / "first")
     run(j_train, first, "--max-steps", "1")
     (ckpt,) = glob.glob(str(tmp_path / "first" / "logs" / "*" / "checkpoints" / "*.ckpt"))

@@ -7,8 +7,10 @@ map (the reference uses ``affine_grid_generator``+``grid_sampler``; here
 scipy ``affine_transform``), then maps box corners and re-clips with
 min-size / min-cropping-ratio filters (:288-350).
 
-Counterpart of ``yolodl_tpu/data/affine.py``, scipy path only: the C++ warp
-of ``native/loader.cpp`` is not ported yet (ROADMAP A11b).
+Counterpart of ``yolodl_tpu/data/affine.py``.  ``warp_image`` takes the C++
+warp (``csrc/host_augment.cpp`` through ``data/native_loader.py``); scipy's
+``affine_transform`` is its plain version, taken only when
+``native_loader._aug_lib_cache`` is set to False.
 """
 
 from __future__ import annotations
@@ -154,14 +156,21 @@ def pixel_affine(transform: np.ndarray, h: int, w: int) -> Tuple[np.ndarray, np.
 def warp_image(image_chw: np.ndarray, m_rc: np.ndarray, b_rc: np.ndarray) -> np.ndarray:
     """Host bilinear warp with scipy order-1 ``mode="constant"`` semantics
     (hard-cut borders: a sample coordinate outside [0, size-1] yields cval)."""
-    from scipy import ndimage
+    # C++ bilinear warp (csrc/host_augment.cpp ydl_affine_warp); scipy is its
+    # plain version
+    from .native_loader import affine_warp_native
 
-    return np.stack(
-        [
-            ndimage.affine_transform(
-                image_chw[ch], m_rc, offset=b_rc, order=1,
-                mode="constant", cval=0.0,
-            )
-            for ch in range(image_chw.shape[0])
-        ]
-    ).astype(np.float32)
+    warped = affine_warp_native(image_chw, m_rc, b_rc)
+    if warped is None:
+        from scipy import ndimage
+
+        warped = np.stack(
+            [
+                ndimage.affine_transform(
+                    image_chw[ch], m_rc, offset=b_rc, order=1,
+                    mode="constant", cval=0.0,
+                )
+                for ch in range(image_chw.shape[0])
+            ]
+        ).astype(np.float32)
+    return warped

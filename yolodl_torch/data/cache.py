@@ -14,14 +14,16 @@ mem_cache}.rs``:
 Boxes come out in target-frame ratio units (cycxhw), exactly like the
 reference's cache output.
 
-Counterpart of ``yolodl_tpu/data/cache.py``.  Decoding takes the PIL path
-only: the native C++ decoder (``native/loader.cpp`` through
-``data/native_loader.py``) is not ported yet (ROADMAP A11b).
+Counterpart of ``yolodl_tpu/data/cache.py``.  Decoding takes the C++
+decoder (``csrc/host_decode.cpp`` through ``data/native_loader.py``) where
+the compiler finds libjpeg's and libpng's headers, PIL elsewhere or under
+``YDL_NO_NATIVE_DECODE`` (:func:`make_decode_loader`).
 """
 
 from __future__ import annotations
 
 import os
+import sys
 import threading
 import urllib.parse
 from typing import Dict, Tuple
@@ -60,11 +62,38 @@ class OnDemandLoader:
         return DataRecord(image=out, boxes=boxes, classes=record.classes)
 
 
+_routes_said = set()
+
+
+def _say_route(route: str) -> None:
+    """Print the decode route and its reason, once a process each."""
+    if route not in _routes_said:
+        _routes_said.add(route)
+        print(f"decode: {route}", file=sys.stderr, flush=True)
+
+
 def make_decode_loader(cache_hw: Tuple[int, int]):
-    """The decode+letterbox loader: PIL, the reference's path under
-    ``YDL_NO_NATIVE_DECODE=1``.  The reference's C++ loader is not ported
-    yet (ROADMAP A11b)."""
-    return OnDemandLoader(cache_hw)
+    """The production decode+letterbox loader: the C++ one (libjpeg/libpng,
+    DCT-scaled JPEG decode, GIL-free so pipeline worker threads actually
+    parallelize) unless ``YDL_NO_NATIVE_DECODE`` is set (e.g. to reproduce
+    PIL-resampled pixels exactly) or the compiler does not find libjpeg's
+    and libpng's headers here; PIL otherwise.  Where the headers are
+    found, a failed build raises."""
+    if os.environ.get("YDL_NO_NATIVE_DECODE"):
+        _say_route("PIL (YDL_NO_NATIVE_DECODE is set)")
+        return OnDemandLoader(cache_hw)
+    from ..kernels import _build
+    from .native_loader import NativeLoader
+
+    found, reason = _build.decode_probe()
+    if not found:
+        _say_route(f"PIL ({reason})")
+        return OnDemandLoader(cache_hw)
+    # ldr_load runs synchronously in the caller's thread (the pipeline's
+    # workers) with the GIL released — no native pool
+    loader = NativeLoader(cache_hw)
+    _say_route(f"native ({reason}; {_build.library_path('host_decode').name})")
+    return loader
 
 
 class FileCache:

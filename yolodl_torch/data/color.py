@@ -4,8 +4,10 @@ Equivalent capability to ``yolo-dl/src/processor/color_jitter.rs:37-72`` and
 the RGB↔HSV conversions in ``tch-goodies/src/tensor.rs:957-1041``: random
 hue shift wraps modulo 1, saturation/value shifts clamp to [0,1].
 
-Counterpart of ``yolodl_tpu/data/color.py``, numpy path only: the fused C++
-jitter of ``native/loader.cpp`` is not ported yet (ROADMAP A11b).
+Counterpart of ``yolodl_tpu/data/color.py``.  ``ColorJitter.apply`` takes
+the fused C++ jitter (``csrc/host_augment.cpp`` through
+``data/native_loader.py``); the numpy round trip below is its plain
+version, taken only when ``native_loader._aug_lib_cache`` is set to False.
 """
 
 from __future__ import annotations
@@ -73,6 +75,14 @@ class ColorJitter:
         return hs, ss, vs
 
     def apply(self, rgb_chw: np.ndarray, hs: float, ss: float, vs: float) -> np.ndarray:
+        # fused C++ kernel (csrc/host_augment.cpp ydl_color_jitter): the
+        # numpy round trip below is its plain version
+        from .native_loader import color_jitter_native
+
+        out = color_jitter_native(rgb_chw, hs, ss, vs)
+        if out is not None:
+            return out
+
         hsv = rgb_to_hsv(rgb_chw)
         hsv[0] = (hsv[0] + hs + 1.0) % 1.0
         hsv[1] = np.clip(hsv[1] + ss, 0.0, 1.0)
