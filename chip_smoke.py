@@ -250,9 +250,9 @@ result line:
    Then lstm.train.cfg at full width through make_classifier_train_step:
    16 sequences (its batch 128 / subdivisions 8) × 576 time steps of the
    repo's README.md + SURVEY.md as one-hot bytes, each label the next
-   byte, Adam: 2 warm-up steps, the second profiled (device activity
-   only, counted on the raw kineto events), 1 timed (CUDA events; 13-22 s
-   a step, so one keeps the smoke inside its time limit); every loss
+   byte, Adam: 1 step profiled (device activity only, counted on the raw
+   kineto events), then 1 timed (CUDA events; 13-23 s a step, so two keep
+   the smoke inside its time limit); every loss
    finite, every parameter changed; step ms, kernels, device ms, idle
    share, peak memory.  Last, detect_main on
    yolov3-tiny_occlusion_track.cfg at 416², batch 20 (its time_steps),
@@ -376,7 +376,34 @@ result line:
    0.5; in f32, rounding alone moves a BN scale's change by 3e-2).  Last,
    three timed bf16 steps (SGD, one warm-up) of each: step ms and the host
    ms inside the transfers.
-17. card  — `nvidia-smi --query-gpu=name,power.limit` as it prints it.
+17. layout — the reference's layout rewrites (ROADMAP A15,
+   yolodl_torch/ops/spd_stem.py, fold_region.py, wgrad.py).  yolov4-csp at
+   608², seed-0 weights with seeded BN, built five times from one state
+   dict: every knob off, spd_stem "auto", "deep", fold_region "on", and
+   "auto" with the fold.  Against off, in f32 (TF32 off): the raw head
+   outputs of an eval forward at b8 within 1e-4 · max|off|; non_max_
+   suppression (argmax, DIoU β 0.6) on each model's output with B1's
+   counters zeroed right before and read right after, one launch of each
+   kernel per batch; the kept (instance, class) pairs not shared with off,
+   each with its score under both and each side's top-k cut (printed
+   beside off's own count on images 1 ulp up; near-ties do not fail the
+   run); one train-mode forward and backward at b8 on bench.py's kind of
+   batch: the loss within rel 1e-5, the rewritten nodes' new BN running
+   statistics within 1e-4 · max, their gradients within 1e-4 · max or 10×
+   off's own move on images 1 ulp up.  Then per model, bf16: the serve
+   forward at b8 (median ms by CUDA events over 10, device ms, kernels,
+   and the aten::copy_ and aten::clone (layout copy) calls it adds to
+   off's) and the train step at b16 with TrainConfig() (median ms over 3
+   after 2 warm-up, peak memory, and the device ms and kernels of one step
+   profiled with the device activity only).  The line gives each part's
+   wall seconds.  Last,
+   conv2d_packed_wgrad at phase wgrad's eight stride-1 shapes and the
+   stride-2 layer1 and layer5, b8, bf16: the forward equal to F.conv2d,
+   dW f32 within 1e-3 · max of f32 conv2d_weight, the product's route
+   (mm with an f32 output on the card), and the dW's ms and peak bytes
+   beside wgrad_lowch's and wgrad_db's (stride 1), conv2d_weight's on
+   the same NCHW operands, and its bound.
+18. card  — `nvidia-smi --query-gpu=name,power.limit` as it prints it.
 
 After the last phase a line gives each phase's wall seconds (`timing`).
 The line before the last lists the kernels; the last line is
@@ -514,6 +541,17 @@ SPATIAL_TRAIN = [608, 8]      # the 1 x 2 train step's size and global batch
 SPATIAL_F32_TOL = 1e-4        # spatial vs one process, f32 outputs: max|d| / max|ref|
 SPATIAL_DELTA_TOL = 1e-3      # each tensor's change by the float64 step: |Δ - Δ_one|₂ / |Δ_one|₂
 SPATIAL_TIMEOUT = 600         # seconds for the ranks
+# phase layout: yolov4-csp-608 with each knob of the reference, against off
+LAYOUT_KNOBS = (("off", {}), ("auto", dict(spd_stem="auto")), ("deep", dict(spd_stem="deep")),
+                ("fold", dict(fold_region="on")),
+                ("auto+fold", dict(spd_stem="auto", fold_region="on")))
+LAYOUT_F32_TOL = 1e-4         # f32 heads and new BN statistics against off, of max
+LAYOUT_LOSS_TOL = 1e-5        # the f32 loss against off's, relative
+LAYOUT_CONTROL_FACTOR = 10    # gradients: 1e-4 of max, or 10x off's own move on images 1 ulp up
+LAYOUT_TIMED = 10             # bf16 serve forwards timed, after 3 warm-up
+LAYOUT_STEPS = 3              # bf16 train steps timed, after 2 warm-up
+# the flagship's stride-2 convs layer1 and layer5 (H, Ci, Co, k, stride)
+LAYOUT_WGRAD_STRIDE2 = [(608, 32, 64, 3, 2), (304, 64, 128, 3, 2)]
 CLASSIFY_ROOT = os.path.join(REPO, "build", "chip_smoke_classify")  # removed at the end
 VGG_CFG = os.path.join(REPO, "cfg", "darknet", "vgg-16.cfg")
 LSTM_CFG = os.path.join(REPO, "cfg", "darknet", "lstm.train.cfg")
@@ -531,7 +569,7 @@ CLASSIFY_BATCH = 128
 CLASSIFY_SIZES = [(300, 400), (256, 256), (480, 360), (200, 320)]  # original h x w
 CLASSIFY_STEPS = 6
 LSTM_SEQUENCES = 16           # lstm.train.cfg's batch 128 / subdivisions 8
-LSTM_WARMUP, LSTM_TIMED = 2, 1   # one timed step (13-22 s): the smoke's time limit
+LSTM_WARMUP, LSTM_TIMED = 1, 1   # 13-23 s a step: the smoke's time limit
 OCCLUSION_FRAMES = 40         # two batches of the cfg's time_steps 20
 OCCLUSION_SIZE = 416
 
@@ -2779,7 +2817,8 @@ def darknet_card_vs_cpu() -> dict:
 
 def profile_calls(fn) -> dict:
     """torch.profiler over fn(): device ms and kernels (is_device_work); the
-    host syncs as aten::item / aten::_local_scalar_dense calls (these count
+    aten::copy_ calls (every copy, dtype casts too) and the aten::clone
+    calls among them (a reshape of a permuted map); the host syncs as aten::item / aten::_local_scalar_dense calls (these count
     a CPU tensor's too, such as the optimizer's step counters); and the
     CUDA runtime's stream/device/event synchronizations that an operator
     issued (the profiler's own and the closing torch.cuda.synchronize have
@@ -2794,6 +2833,8 @@ def profile_calls(fn) -> dict:
     kernels = [e for e in events if is_device_work(e)]
     return {"device_ms": sum(e.device_time_total for e in kernels) / 1e3,
             "kernels": len(kernels),
+            "copies": sum(e.name == "aten::copy_" for e in events),
+            "layout_copies": sum(e.name == "aten::clone" for e in events),
             "host_syncs": sum(e.name in ("aten::item", "aten::_local_scalar_dense")
                               for e in events),
             "cuda_syncs": sum(e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
@@ -3490,12 +3531,10 @@ def classify_workspace(root, batch) -> str:
     return config
 
 
-def step_profile(step, n_timed) -> dict:
-    """One call of ``step()`` under torch.profiler with the device activity
-    only, its kernels and their device ms counted on the raw kineto events
-    (a step of 10^5-10^6 kernels would take minutes as FunctionEvents);
-    then ``n_timed`` calls between CUDA events (ms each, sorted), and the
-    card's idle share of the median one (1 - device ms / step ms)."""
+def device_profile(fn) -> tuple:
+    """(kernels, device ms) of one ``fn()`` under torch.profiler with the
+    device activity only, counted on the raw kineto events (a step of
+    10^4-10^6 kernels takes seconds to minutes as FunctionEvents)."""
     from torch.profiler import ProfilerActivity, profile
 
     # (DEVICE "cpu", a rehearsal: the CPU's operators stand in for kernels)
@@ -3503,14 +3542,21 @@ def step_profile(step, n_timed) -> dict:
                       else (ProfilerActivity.CPU, "CPU"))
     torch.cuda.synchronize()
     with profile(activities=[activity]) as prof:
-        step()
+        fn()
         torch.cuda.synchronize()
     kernels, ns = 0, 0
     for e in prof.profiler.kineto_results.events():
         if e.device_type().name == kind and not e.is_user_annotation():
             kernels += 1
             ns += e.duration_ns()
-    del prof
+    return kernels, ns / 1e6
+
+
+def step_profile(step, n_timed) -> dict:
+    """One call of ``step()`` under :func:`device_profile`, then
+    ``n_timed`` calls between CUDA events (ms each, sorted), and the card's
+    idle share of the median one (1 - device ms / step ms)."""
+    kernels, device_ms = device_profile(step)
     events = [torch.cuda.Event(enable_timing=True) for _ in range(n_timed + 1)]
     events[0].record()
     for i in range(n_timed):
@@ -3519,8 +3565,8 @@ def step_profile(step, n_timed) -> dict:
     torch.cuda.synchronize()
     ms = sorted(events[i].elapsed_time(events[i + 1]) for i in range(n_timed))
     median = ms[len(ms) // 2]
-    return {"step_ms": ms, "step_ms_median": median, "device_ms": ns / 1e6,
-            "kernels": kernels, "device_idle_share": 1.0 - ns / 1e6 / median}
+    return {"step_ms": ms, "step_ms_median": median, "device_ms": device_ms,
+            "kernels": kernels, "device_idle_share": 1.0 - device_ms / median}
 
 
 def vgg_classify_main(root) -> dict:
@@ -5243,6 +5289,294 @@ def phase_spatial() -> dict:
     return {"spatial_infer_nms": r0["nms_launches"]}
 
 
+def layout_nms_gaps(kept, ref, pred, ref_pred) -> list:
+    """The (instance, class) pairs kept by one NMS and not the other, each
+    with its score under both predictions and each NMS's top-k cut (its
+    lowest candidate score): a pair at the cut, or beside a box that one
+    side suppresses, is a near-tie."""
+    conf, ref_conf = pred.confidence(), ref_pred.confidence()
+    rows = []
+    for i in range(kept.valid.shape[0]):
+        pairs = {}
+        for side, n in (("knob", kept), ("off", ref)):
+            v = n.valid[i]
+            for inst, cls in zip(n.instances[i][v].tolist(), n.classes[i][v].tolist()):
+                pairs.setdefault((inst, cls), set()).add(side)
+        for (inst, cls), sides in sorted(pairs.items()):
+            if len(sides) == 1:
+                rows.append({"image": i, "instance": inst, "class": cls,
+                             "kept_by": sides.pop(),
+                             "score_knob": float(conf[i, inst, cls]),
+                             "score_off": float(ref_conf[i, inst, cls]),
+                             "topk_cut_knob": float(kept.confidence[i].min()),
+                             "topk_cut_off": float(ref.confidence[i].min())})
+    return rows
+
+
+def packed_wgrad_bound(b, ho, ci, co, k, s, itemsize):
+    """(bound_ms, bound_by) of one packed dW: the pre-padded input read once
+    (``(ho−1)s + k`` rows and columns), g read once, dW written once in f32,
+    against 2·B·Ho·Wo·k²·Ci·Co operations at the inputs' peak."""
+    hp = (ho - 1) * s + k
+    t_bytes = (b * hp * hp * ci * itemsize + b * ho * ho * co * itemsize
+               + 4 * k * k * ci * co) / HBM_BYTES_PER_S
+    t_ops = 2 * b * ho * ho * k * k * ci * co / (BF16_FLOPS if itemsize == 2 else F32_FLOPS)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def layout_wgrad() -> None:
+    """conv2d_packed_wgrad (ops/wgrad.py) at phase wgrad's eight stride-1
+    shapes and the flagship's two stride-2 convs, b8, bf16: the forward
+    equal to F.conv2d, dW within WGRAD_LIB_TOL of f32 conv2d_weight; ms
+    and peak bytes of the packed dW beside B2, B3 (stride 1) and
+    conv2d_weight on the same operands."""
+    import torch.nn.functional as F
+    from torch.nn.grad import conv2d_weight
+
+    from yolodl_torch.kernels import wgrad_db, wgrad_lowch
+    from yolodl_torch.ops.wgrad import conv2d_packed_wgrad, mm_route, wgrad_im2col
+
+    gen = torch.Generator(device=DEVICE).manual_seed(5)  # drawn on the card: 10^8 values
+    b = BATCH
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE)
+
+    for h, ci, co, k, s in [(*shape, 1) for shape in WGRAD_SHAPES] + LAYOUT_WGRAD_STRIDE2:
+        pad = (k - 1) // 2
+        ho = (h + 2 * pad - k) // s + 1
+        x = randn(b, ci, h, h).to(torch.bfloat16)
+        w = randn(co, ci, k, k) / (k * k * ci) ** 0.5
+        gy = randn(b, co, ho, ho).to(torch.bfloat16)
+        wr = w.clone().requires_grad_(True)
+        y = conv2d_packed_wgrad(x, wr, k, s)
+        y.backward(gy)
+        row = {"shape": [b, h, ci, co, k, s], "dtype": "bfloat16",
+               "mm_route": mm_route(x.device, x.dtype), "dw_dtype": str(wr.grad.dtype)}
+        if not torch.equal(y, F.conv2d(x, w.to(torch.bfloat16), stride=s, padding=pad)):
+            raise AssertionError(f"conv2d_packed_wgrad {row['shape']}: forward != F.conv2d")
+        lib32 = conv2d_weight(x.float(), (co, ci, k, k), gy.float(), stride=s, padding=pad)
+        row["lib_rel_err"] = rel_err(wr.grad, lib32)
+        if wr.grad.dtype != torch.float32 or not row["lib_rel_err"] <= WGRAD_LIB_TOL:
+            raise AssertionError(f"conv2d_packed_wgrad {row['shape']}: dW {wr.grad.dtype}, "
+                                 f"rel err {row['lib_rel_err']} against f32 conv2d_weight")
+        del y, wr, lib32
+        xp = F.pad(x, (pad,) * 4)[:, :, :(ho - 1) * s + k, :(ho - 1) * s + k]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        wgrad_im2col(xp, gy, k, s)
+        torch.cuda.synchronize()
+        row["packed_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        row["packed_ms"] = median_ms(lambda: wgrad_im2col(xp, gy, k, s), n=20)
+        row["library_ms"] = median_ms(
+            lambda: conv2d_weight(x, (co, ci, k, k), gy, stride=s, padding=pad), n=20)
+        if s == 1:
+            xp_nhwc = xp.permute(0, 2, 3, 1).contiguous()
+            g_nhwc = gy.permute(0, 2, 3, 1).contiguous()
+            for name, fn in (("wgrad_lowch", wgrad_lowch), ("wgrad_db", wgrad_db)):
+                row[f"{name}_ms"] = median_ms(
+                    lambda fn=fn: fn(xp_nhwc, g_nhwc, k, device=DEVICE), n=20)
+            del xp_nhwc, g_nhwc
+        row["bound_ms"], row["bound_by"] = packed_wgrad_bound(b, ho, ci, co, k, s, 2)
+        emit({"phase": "layout", "part": "conv2d_packed_wgrad", **row})
+        del x, w, gy, xp
+    torch.cuda.empty_cache()
+
+
+def phase_layout(iou) -> dict:
+    """The layout rewrites (ROADMAP A15): yolov4-csp-608 with each knob
+    against ``off``; see the module docstring."""
+    from yolodl_torch.config import darknet_cfg as dk
+    from yolodl_torch.graph.from_darknet import graph_from_darknet
+    from yolodl_torch.loss import non_max_suppression, yolo_loss
+    from yolodl_torch.models import YoloModel
+    from yolodl_torch.models.builder import module_key
+    from yolodl_torch.train import TrainConfig, make_train_step, train_init
+
+    t0 = time.perf_counter()
+    part_seconds = {}
+
+    def lap(part):  # wall seconds of each part of the phase
+        part_seconds[part] = time.perf_counter() - t0 - sum(part_seconds.values())
+
+    graph = graph_from_darknet(dk.Darknet.load(CFG))
+    models = {}
+    for name, knob in LAYOUT_KNOBS:
+        models[name] = YoloModel(graph, device=DEVICE, generator=torch.Generator().manual_seed(0),
+                                 **knob)
+        if name == "off":
+            randomize_bn(models[name], 0)
+            sd0 = {k: v.clone() for k, v in models[name].state_dict().items()}
+        models[name].load_state_dict(sd0)
+    off = models["off"]
+    lap("build")
+
+    def rewritten(m) -> tuple:  # conv node keys a knob runs packed or folded
+        return (m._spd_pair or ())[1:] + (m._spd_res or ())[:2] + m._fold_convs
+
+    def prefixes(m):
+        return tuple(f"layers.{module_key(m._pname[k])}." for k in rewritten(m))
+
+    def sync():
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+
+    failures, lines = [], {name: {"knob": name, "rewritten": [off._pname[k] for k in rewritten(m)]}
+                           for name, m in models.items()}
+
+    # eval, f32, b8: the raw heads and NMS (B1's counters zeroed right
+    # before and read right after each model's suppression)
+    rng = np.random.default_rng(17)
+    x = torch.from_numpy(rng.uniform(0, 1, (BATCH, 3, IMAGE_SIZE, IMAGE_SIZE))
+                         .astype(np.float32)).to(DEVICE)
+    heads = tuple(graph.detect_head_input_keys())
+    out_key = graph.output_node().key
+    nms_kernels = (iou.nms_conflict_bits, iou.nms_keep_from_bits)
+    nms_launches = {fn.__name__: 0 for fn in nms_kernels}
+    outs, kept = {}, {}
+
+    def nms(pred):
+        return non_max_suppression(pred, iou_threshold=NMS_IOU, class_mode="argmax",
+                                   kind="diou", beta=NMS_BETA)
+
+    for name, m in models.items():
+        with torch.no_grad():
+            outs[name] = m(x, output_keys=heads + (out_key,))
+        for fn in nms_kernels:
+            fn.launches = 0
+        kept[name] = nms(outs[name][out_key])
+        sync()
+        launches = {fn.__name__: fn.launches for fn in nms_kernels}
+        for fn_name, n in launches.items():
+            nms_launches[fn_name] += n
+        lines[name]["nms_launches"] = launches
+        if DEVICE == "cuda" and set(launches.values()) != {1}:
+            failures.append(f"{name}: NMS launches {launches} for one batch")
+    with torch.no_grad():  # rounding alone: off on images 1 ulp up (printed only)
+        nudged = off(torch.nextafter(x, torch.tensor(float("inf"), device=x.device)))
+    nudged_kept = nms(nudged)
+    for name in models:
+        if name == "off":
+            continue
+        line = lines[name]
+        line["f32_head_err_of_max"] = max(rel_err(outs[name][k], outs["off"][k]) for k in heads)
+        if not line["f32_head_err_of_max"] <= LAYOUT_F32_TOL:
+            failures.append(f"{name}: f32 heads {line['f32_head_err_of_max']} of max")
+        a, r = kept[name], kept["off"]
+        gaps = layout_nms_gaps(a, r, outs[name][out_key], outs["off"][out_key])
+        line["nms"] = {"valid_differ": int((a.valid != r.valid).sum()), "kept": int(a.valid.sum()),
+                       "kept_pairs_not_shared": len(gaps), "gaps": gaps[:8]}
+    control_nms = {"kept_pairs_not_shared": len(layout_nms_gaps(
+        nudged_kept, kept["off"], nudged, outs["off"][out_key]))}
+    del outs, kept, nudged, nudged_kept
+    lap("f32_eval_nms")
+
+    # one train-mode forward and backward, f32, b8, bench's kind of batch:
+    # the loss, the rewritten nodes' new BN statistics and gradients against
+    # off's, the gradients held to 10x off's own move on images 1 ulp up
+    images, boxes, classes, mask = (torch.from_numpy(a).to(DEVICE)
+                                    for a in synthetic_batch(BATCH, IMAGE_SIZE, seed=3))
+    config = TrainConfig()
+
+    touched = tuple(set().union(*(prefixes(m) for m in models.values())))
+
+    def train_once(m, imgs):
+        m.load_state_dict(sd0)
+        m.zero_grad(set_to_none=True)
+        out, _ = yolo_loss(m(imgs, train=True), boxes, classes, mask, config.loss)
+        out.total_loss.backward()
+        grads = {k: p.grad.detach().clone() for k, p in m.named_parameters()
+                 if k.startswith(touched)}
+        stats = {k: v.clone() for k, v in m.state_dict().items()
+                 if k.endswith((".mean", ".var"))}
+        m.zero_grad(set_to_none=True)
+        return float(out.total_loss.detach()), grads, stats
+
+    ref_loss, ref_grads, ref_stats = train_once(off, images)
+    _, ctl_grads, _ = train_once(off, torch.nextafter(
+        images, torch.tensor(float("inf"), device=images.device)))
+    for name, m in models.items():
+        if name == "off":
+            continue
+        loss, grads, stats = train_once(m, images)
+        line = lines[name]
+        line["loss"], line["loss_off"] = loss, ref_loss
+        if not abs(loss - ref_loss) <= LAYOUT_LOSS_TOL * abs(ref_loss):
+            failures.append(f"{name}: f32 loss {loss} vs off {ref_loss}")
+        mine = prefixes(m)
+        worst_stat = max(rel_err(v, ref_stats[k]) for k, v in stats.items() if k.startswith(mine))
+        line["bn_stat_err_of_max"] = worst_stat
+        if not worst_stat <= LAYOUT_F32_TOL:
+            failures.append(f"{name}: new BN statistics {worst_stat} of max")
+        worst = {}
+        for k, g in grads.items():
+            if not k.startswith(mine):
+                continue
+            err = float((g - ref_grads[k]).abs().max())
+            control = float((ctl_grads[k] - ref_grads[k]).abs().max())
+            scale = float(ref_grads[k].abs().max())
+            worst[k] = {"err_of_max": err / max(scale, 1e-30),
+                        "control_err_of_max": control / max(scale, 1e-30)}
+            if not (err <= LAYOUT_F32_TOL * scale or err <= LAYOUT_CONTROL_FACTOR * control):
+                failures.append(f"{name}: gradient {k} {err} (off's 1-ulp control {control}, "
+                                f"max {scale})")
+        line["grad_err"] = worst
+    del images, ref_grads, ctl_grads, ref_stats
+    lap("f32_train")
+
+    # bf16: the serve forward at b8 and the train step at b16 (TrainConfig())
+    xb = x.to(torch.bfloat16)
+    images, boxes, classes, mask = synthetic_batch(TRAIN_BATCH, IMAGE_SIZE)
+    batch = (torch.from_numpy(images).to(torch.bfloat16).to(DEVICE),
+             *(torch.from_numpy(a).to(DEVICE) for a in (boxes, classes, mask)))
+    for name, m in models.items():
+        line = lines[name]
+        with torch.no_grad():
+            ms = [timed_ms(lambda: m(xb), DEVICE) for _ in range(3 + LAYOUT_TIMED)][3:]
+            line["serve_ms"] = statistics.median(ms)
+            lap(f"bf16_serve_{name}")
+            line["serve"] = profile_calls(lambda: m(xb))
+            lap(f"bf16_serve_profile_{name}")
+        ts, opt = train_init(m, TrainConfig())
+        step = make_train_step(m, opt, TrainConfig())
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = [], []
+        for i in range(2 + LAYOUT_STEPS):
+            def one():
+                nonlocal ts
+                ts, metrics = step(ts, *batch)
+                losses.append(float(metrics["total_loss"]))
+            t = timed_ms(one, DEVICE)
+            if i >= 2:
+                ms.append(t)
+        line["step_ms"] = statistics.median(ms)
+        line["step_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        lap(f"bf16_step_{name}")
+        line["step_kernels"], line["step_device_ms"] = device_profile(lambda: step(ts, *batch))
+        lap(f"bf16_step_profile_{name}")
+        if not all(np.isfinite(losses)):
+            failures.append(f"{name}: bf16 losses {losses}")
+        del ts, opt, step
+        torch.cuda.empty_cache()
+    for name, line in lines.items():
+        for key in ("copies", "layout_copies"):
+            line["serve"][f"{key}_beyond_off"] = line["serve"][key] - lines["off"]["serve"][key]
+        emit({"phase": "layout", **line})
+    del models, off, xb, batch
+    torch.cuda.empty_cache()
+
+    layout_wgrad()
+    lap("conv2d_packed_wgrad")
+    emit({"phase": "layout", "nms_launches": nms_launches, "control_nms": control_nms,
+          "failures": failures, "seconds": time.perf_counter() - t0,
+          "part_seconds": part_seconds, "card": card_line()})
+    if failures:
+        raise AssertionError("phase layout: " + "; ".join(failures))
+    return {"layout": nms_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5290,6 +5624,7 @@ def main() -> int:
         by_path.update(run("tp", phase_tp))
         by_path.update(run("pp", phase_pp))
         by_path.update(run("spatial", phase_spatial))
+        by_path.update(run("layout", phase_layout, iou))
     finally:  # also when a phase fails
         emit({"phase": "timing", "seconds_by_phase": seconds,
               "seconds": sum(seconds.values())})

@@ -100,6 +100,151 @@ def reference_and_port(cfg_name, seed=0):
     return jm, params, state, tm
 
 
+# -- the layout rewrites (test_torch_layout_*.py): yolov4-csp at 64² with each
+# knob of the reference, port knob against reference knob
+
+LAYOUT_KNOBS = {"auto": dict(spd_stem="auto"), "deep": dict(spd_stem="deep"),
+                "fold": dict(fold_region="on"),
+                "auto+fold": dict(spd_stem="auto", fold_region="on")}
+_LAYOUT = {}
+
+
+# the reference fold test's graph: an eligible stem pair, then the stage-1
+# quintet (1x1 64->32, 3x3 32->64, shortcut) at 24²
+MINI_CFG = """
+[net]
+batch=1
+subdivisions=1
+width=24
+height=24
+channels=3
+
+[convolutional]
+batch_normalize=1
+filters=32
+size=3
+stride=1
+pad=1
+activation=mish
+
+[convolutional]
+batch_normalize=1
+filters=64
+size=3
+stride=2
+pad=1
+activation=mish
+
+[convolutional]
+batch_normalize=1
+filters=32
+size=1
+stride=1
+pad=1
+activation=mish
+
+[convolutional]
+batch_normalize=1
+filters=64
+size=3
+stride=1
+pad=1
+activation=mish
+
+[shortcut]
+from=-3
+activation=linear
+"""
+
+
+def layout_models(knob):
+    """(reference, params, state, port) of yolov4-csp with the knobs
+    ``knob`` (the reference's ``spd_stem`` "off" unless it is named), the
+    same seed-0 trees (per-channel BN) in both."""
+    if not _LAYOUT:
+        path = os.path.join(REPO, "cfg", "darknet", "yolov4-csp.cfg")
+        _LAYOUT["graphs"] = j_load(path), t_load(path)
+        _LAYOUT["trees"] = seeded_trees(JYoloModel(_LAYOUT["graphs"][0], spd_stem="off").init, 0)
+    (jg, tg), (params, state) = _LAYOUT["graphs"], _LAYOUT["trees"]
+    jm = JYoloModel(jg, **{"spd_stem": "off", **knob})
+    tm = YoloModel(tg, device="cpu", **knob)
+    tm.load_state_dict(params_from_jax(params, state))
+    return jm, params, state, tm
+
+
+def assert_train_state_matches(models, size=64):
+    """One train-mode forward of port and reference on the same seeded
+    input: every new BN running mean and var within rtol 1e-4 and atol
+    1e-4 · max|ref| of its tensor, and moved by the forward.  (Train-mode
+    outputs at 64², batch 2 are not compared: with 8 rows a channel at the
+    deepest map, BN there amplifies f32 rounding past that tolerance in
+    either package, with every knob off too.)"""
+    jm, params, state, tm = models
+    x = np.random.default_rng(1).uniform(0, 1, (2, 3, size, size)).astype(np.float32)
+    _, new_state = jax.jit(lambda p, s, x: jm.apply(p, s, x, train=True))(
+        jax.tree_util.tree_map(jnp.asarray, params),
+        jax.tree_util.tree_map(jnp.asarray, state), jnp.asarray(x))
+    before = params_from_jax(params, state)
+    with torch.no_grad():
+        tm(torch.from_numpy(x), train=True)
+    got = tm.state_dict()
+    stats = 0
+    for name, want in params_from_jax(params, jax.tree_util.tree_map(np.asarray, new_state)).items():
+        if not name.endswith((".mean", ".var")):
+            continue
+        stats += 1
+        assert not torch.equal(want, before[name]), name
+        np.testing.assert_allclose(got[name].numpy(), want.numpy(), rtol=1e-4,
+                                   atol=1e-4 * float(want.abs().max()), err_msg=name)
+    assert stats > 100
+
+
+def count_rewrites(monkeypatch):
+    """{name: calls} of the rewrites' functions in the port, counted from
+    here on: ``spd_stem_apply``, ``spd_res_block_apply``,
+    ``fold_conv_bn_apply``, ``fold_w`` and ``unfold_w``."""
+    from yolodl_torch.ops import fold_region, spd_stem
+
+    counts = {}
+    for module, name in ((spd_stem, "spd_stem_apply"), (spd_stem, "spd_res_block_apply"),
+                         (fold_region, "fold_conv_bn_apply"), (fold_region, "fold_w"),
+                         (fold_region, "unfold_w")):
+        counts[name] = 0
+
+        def counted(*a, _fn=getattr(module, name), _name=name, **kw):
+            counts[_name] += 1
+            return _fn(*a, **kw)
+
+        monkeypatch.setattr(module, name, counted)
+    return counts
+
+
+# calls of each rewrite in one forward of yolov4-csp with each knob (the
+# fold region: layer2, layer3 and the shortcut layer4, one fold of layer1's
+# output, one unfold of layer4's, read by layer5)
+LAYOUT_TAKEN = {
+    "auto": dict(spd_stem_apply=1),
+    "deep": dict(spd_stem_apply=1, spd_res_block_apply=1),
+    "fold": dict(fold_conv_bn_apply=2, fold_w=1, unfold_w=1),
+    "auto+fold": dict(spd_stem_apply=1, fold_conv_bn_apply=2, fold_w=1, unfold_w=1),
+}
+
+
+def knob_matches(knob, train, monkeypatch):
+    """Port knob against reference knob, eval (two port forwards, NCHW and
+    NHWC) or one train-mode forward, with the rewrites of LAYOUT_TAKEN."""
+    jm, params, state, tm = models = layout_models(LAYOUT_KNOBS[knob])
+    assert tm._spd_pair == jm._spd_pair and tm._spd_res == jm._spd_res
+    assert set(tm._fold_keys) == set(jm._fold_keys)
+    counts = count_rewrites(monkeypatch)
+    if train:
+        assert_train_state_matches(models)
+    else:
+        assert_forward_matches("yolov4-csp", models=models)
+    forwards = 1 if train else 2
+    assert counts == {name: forwards * LAYOUT_TAKEN[knob].get(name, 0) for name in counts}
+
+
 NEWSLAB_MODELS = ("yolov4-csp-custom-64x64-2021-08-21", "yolov4-csp-custom-128x128-2021-07-17",
                   "yolov4-csp-custom-2021-03-08", "yolov4-csp-custom-2021-03-11",
                   "yolov4-csp-custom-2021-03-11-1", "yolov4-csp-custom-2021-03-11-2")

@@ -21,9 +21,7 @@ DarknetSam, DarknetScaleChannels, Reorg2D (plain, reverse and old),
 MaxPool (max and avg), GlobalAvgPool2D, UpSample2D, Sum2D, Concat2D,
 DynamicPad2D, Identity, Dropout, Softmax, Detect2D, MergeDetect2D,
 Yolov1Detection, and the dense and recurrent kinds of ``ops/recurrent.py``:
-Linear, DarknetRnn, DarknetGru, DarknetLstm and DarknetCrnn.  The
-reference's layout rewrites (``spd_stem``, ``fold_region``) are not
-ported: the port computes as the reference does with ``spd_stem="off"``.
+Linear, DarknetRnn, DarknetGru, DarknetLstm and DarknetCrnn.
 
 Every reshape of the reference reads NHWC; the port's NCHW forms keep the
 same element order: Softmax and GlobalAvgPool2D reduce dim 1 and dims 2-3,
@@ -48,6 +46,30 @@ Under tensor parallelism (``parallel/tp.py``) a conv or Linear node holds
 this rank's output channels and its ``shard`` (a ``LayerShard``), which
 the node's apply function calls around the conv and for BN; the graph
 walk is the same.
+
+The reference's layout rewrites, behind its own knobs; each changes only
+the plan, never the parameters or their names:
+
+- ``spd_stem``: "auto" (and its alias "stem") runs an eligible darknet
+  stem ``Input → conv(k3, s1) → conv(k3, s2)`` over space-to-depth maps
+  (``ops/spd_stem.py``); "deep" also packs the stage-1 residual pair
+  ``conv(1×1) → conv(3×3) → shortcut`` that follows it; "off" runs neither.
+- ``fold_region``: "on" runs the low-channel shape-preserving convs, and
+  the sums and shortcuts between them, W-folded (``ops/fold_region.py``).
+
+The port's defaults are ``spd_stem="off"`` and ``fold_region="off"``; the
+reference's ``spd_stem`` default is "auto".  A rewrite is skipped, and the
+nodes run one by one, where the reference skips it (odd H or W at the
+stem; a ``node_subset`` without the whole trio or quintet; any
+``node_overrides`` for the stem; any ``node_subset`` for the fold) and
+where the reference could not run it: ``output_keys`` naming a node inside
+a fused trio or quintet other than its last, or a node of the rewrite
+holding a tensor-parallel ``shard`` (the packed kernel of a cut layer is
+not the cut of the packed kernel).  A folded region node's output is
+unfolded only where a node outside the region, ``output_keys`` or the
+graph output reads it (the reference leaves the unused ones to its
+compiler's dead-code pass).  ``remat="blocks"`` checkpoints the two SPD
+functions, not the fold, as the reference does.
 """
 
 from __future__ import annotations
@@ -65,7 +87,7 @@ from .._device import resolve_device
 from ..config import newslab as cfg
 from ..graph import Graph
 from ..graph.ir import MERGE_DETECT_2D
-from ..ops import blocks, conv, detect, norm, recurrent, simple
+from ..ops import blocks, conv, detect, fold_region, norm, recurrent, simple, spd_stem
 
 Tensor = torch.Tensor
 
@@ -317,13 +339,20 @@ class GraphModel(nn.Module):
     """Any graph of the ported node kinds as one module."""
 
     def __init__(self, graph: Graph, *, device="cuda",
-                 generator: Optional[torch.Generator] = None, remat: str = "off"):
+                 generator: Optional[torch.Generator] = None, remat: str = "off",
+                 spd_stem: str = "off", fold_region: str = "off"):
         """``device`` defaults to ``"cuda"`` and raises without a card;
         ``generator`` seeds :meth:`init` (a CPU generator seeded 0 when
-        omitted); ``remat`` is "off" or "blocks" (see the module's doc)."""
+        omitted); ``remat`` is "off" or "blocks"; ``spd_stem`` "off",
+        "auto", "stem" or "deep"; ``fold_region`` "off" or "on" (see the
+        module's doc)."""
         super().__init__()
         if remat not in ("off", "blocks"):
             raise ValueError(f"remat must be off|blocks, got {remat!r}")
+        if spd_stem not in ("off", "auto", "stem", "deep"):
+            raise ValueError(f"spd_stem must be off|auto|stem|deep, got {spd_stem!r}")
+        if fold_region not in ("off", "on"):
+            raise ValueError(f"fold_region must be off|on, got {fold_region!r}")
         device = resolve_device(device)
         self.remat = remat == "blocks"
         self.graph = graph
@@ -362,9 +391,97 @@ class GraphModel(nn.Module):
                 m = ConvNode(in_c, layer.c, layer.k, layer.g, layer.bias, bn, device)
             self.layers[module_key(self._pname[key])] = m
 
+        self._consumers: Dict[int, set] = {key: set() for key in graph.nodes}
+        for node in graph.nodes.values():
+            for k in node.input_keys.iter_keys():
+                self._consumers[k].add(node.key)
+        self._spd_pair = self._spd_res = None
+        if spd_stem != "off":
+            self._spd_pair = self._detect_spd_pair()
+        if spd_stem == "deep" and self._spd_pair is not None:
+            self._spd_res = self._detect_spd_res()
+        self._fold_keys = self._detect_fold_region() if fold_region == "on" else frozenset()
+        self._fold_convs = tuple(k for k in graph.order if k in self._fold_keys
+                                 and isinstance(graph.nodes[k].config, cfg.ConvBn2D))
+
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.init(generator)
+
+    def _detect_spd_pair(self) -> Optional[Tuple[int, int, int]]:
+        """(Input, conv0, conv1) of the space-to-depth stem, or None: the
+        graph starts with Input → conv0 → conv1, conv0 has no other
+        consumer, the pair is eligible (``spd_stem.stem_is_eligible``), and
+        the two convs share their freeze status (the fused stem detaches its
+        output once).  The reference's conditions (builder.py:106-130)."""
+        graph = self.graph
+        if len(graph.order) < 3:
+            return None
+        k_in, k0, k1 = graph.order[:3]
+        n_in, n0, n1 = (graph.nodes[k] for k in (k_in, k0, k1))
+        if (isinstance(n_in.config, cfg.Input)
+                and n0.input_keys.kind == "single" and n0.input_keys.single_key == k_in
+                and n1.input_keys.kind == "single" and n1.input_keys.single_key == k0
+                and self._consumers[k0] == {k1}
+                and spd_stem.stem_is_eligible(n0.config, n1.config)
+                and (k0 in self._sg_keys) == (k1 in self._sg_keys)):
+            return k_in, k0, k1
+        return None
+
+    def _detect_spd_res(self) -> Optional[Tuple[int, int, int]]:
+        """(conv2, conv3, shortcut) of the stage-1 residual pair after the
+        stem, or None: conv(1×1) → conv(3×3) → a weightless shortcut back to
+        the stem's output, nothing else reading them, output channels equal,
+        one freeze status (builder.py:143-174)."""
+        graph = self.graph
+        if len(graph.order) < 6:
+            return None
+        k1 = self._spd_pair[2]
+        k2, k3, k4 = graph.order[3:6]
+        n1, n2, n3, n4 = (graph.nodes[k] for k in (k1, k2, k3, k4))
+        ins4 = list(n4.input_keys.iter_keys())
+        if (n2.input_keys.kind == "single" and n2.input_keys.single_key == k1
+                and n3.input_keys.kind == "single" and n3.input_keys.single_key == k2
+                and isinstance(n4.config, cfg.DarknetShortcut)
+                and set(ins4) == {k3, k1} and len(ins4) == 2
+                and n4.config.weights_type == "none"
+                and self._consumers[k1] == {k2, k4}
+                and self._consumers[k2] == {k3}
+                and self._consumers[k3] == {k4}
+                and spd_stem.res_block_is_eligible(n2.config, n3.config)
+                and n3.config.c == n1.config.c
+                and len({k in self._sg_keys for k in (k2, k3, k4)}) == 1):
+            return k2, k3, k4
+        return None
+
+    def _detect_fold_region(self) -> frozenset:
+        """Nodes to run W-folded: the foldable convs
+        (``fold_region.conv_is_foldable``), and the Sum2D / weightless
+        DarknetShortcut nodes that read one of them, when all their inputs
+        have one fully known shape (builder.py:200-241)."""
+        region = set()
+        for key in self.graph.order:
+            node = self.graph.nodes[key]
+            layer = node.config
+            ikeys = list(node.input_keys.iter_keys())
+            if isinstance(layer, cfg.ConvBn2D):
+                if len(ikeys) == 1 and fold_region.conv_is_foldable(layer, self._in_c[key]):
+                    region.add(key)
+            elif isinstance(layer, (cfg.Sum2D, cfg.DarknetShortcut)):
+                if not any(k in region for k in ikeys):
+                    continue
+                if isinstance(layer, cfg.DarknetShortcut) and layer.weights_type != "none":
+                    continue
+                shapes = set()
+                for k in ikeys:
+                    s = self.graph.nodes[k].output_shape
+                    if not s.is_tensor or not all(d.is_known for d in s.tensor_shape()[1:]):
+                        break
+                    shapes.add(tuple(d.size for d in s.tensor_shape()[1:]))
+                else:
+                    if len(shapes) == 1:
+                        region.add(key)
+        return frozenset(region)
 
     def init(self, generator: torch.Generator) -> None:
         """(Re)draw every parameter from ``generator``, node by node in
@@ -403,6 +520,94 @@ class GraphModel(nn.Module):
         if train:
             m.write_state(new_state)
         return out
+
+    def _sharded(self, keys) -> bool:
+        return any(self._node(k).shard is not None for k in keys)
+
+    def _apply_spd(self, fn, keys: Tuple[int, int], extra: tuple, x: Tensor,
+                   train: bool) -> Tensor:
+        """``fn`` (``spd_stem_apply`` or ``spd_res_block_apply``) over the
+        conv nodes ``keys``, under checkpoint with ``remat="blocks"``; in
+        training the two new BN states are written here, outside it, as
+        :meth:`_apply_bn_node` writes them."""
+        ka, kb = keys
+        ma, mb = self._node(ka), self._node(kb)
+        la, lb = self.graph.nodes[ka].config, self.graph.nodes[kb].config
+
+        def run(inp):
+            return fn(ma.params(), ma.state(), la, mb.params(), mb.state(), lb, *extra,
+                      inp, train)
+
+        if self.remat and torch.is_grad_enabled():
+            out, sa, sb = checkpoint(run, x, use_reentrant=False)
+        else:
+            out, sa, sb = run(x)
+        if train:
+            ma.write_state(sa)
+            mb.write_state(sb)
+        return out
+
+    def _run_spd(self, x: Optional[Tensor], train: bool, run, output_keys,
+                 node_overrides, outputs: Dict[int, object]) -> set:
+        """The SPD stem (and the deep region) when ``forward``'s arguments
+        allow them: their outputs go into ``outputs`` → the keys they
+        replace."""
+        if (self._spd_pair is None or node_overrides or x is None
+                or x.shape[2] % 2 or x.shape[3] % 2):
+            return set()
+        asked = set(output_keys or ())
+        k_in, k0, k1 = self._spd_pair
+        if ((run is not None and not {k_in, k0, k1} <= run) or k0 in asked
+                or self._sharded((k0, k1))):
+            return set()
+        out1 = self._apply_spd(spd_stem.spd_stem_apply, (k0, k1), (), x, train)
+        outputs[k_in] = x
+        outputs[k1] = out1.detach() if k1 in self._sg_keys else out1
+        done = {k_in, k0, k1}
+        if self._spd_res is None or out1.shape[2] % 2 or out1.shape[3] % 2:
+            return done
+        k2, k3, k4 = self._spd_res
+        if ((run is not None and not {k2, k3, k4} <= run) or asked & {k2, k3}
+                or self._sharded((k2, k3))):
+            return done
+        out4 = self._apply_spd(spd_stem.spd_res_block_apply, (k2, k3),
+                               (self.graph.nodes[k4].config.act,), out1, train)
+        outputs[k4] = out4.detach() if k4 in self._sg_keys else out4
+        return done | {k2, k3, k4}
+
+    def _apply_fold_node(self, key: int, layer, ik, outputs: Dict[int, object],
+                         folded: Dict[int, Tensor], train: bool) -> Optional[Tensor]:
+        """A region node on W-folded maps → its folded output, or None when
+        an input's width is no multiple of ``FOLD`` (the node then runs
+        canonically).  An input is folded once and kept in ``folded``."""
+
+        def folded_input(k: int) -> Optional[Tensor]:
+            if k not in folded:
+                t = outputs[k]
+                if not isinstance(t, Tensor) or t.dim() != 4 or t.shape[3] % fold_region.FOLD:
+                    return None
+                folded[k] = fold_region.fold_w(t)
+            return folded[k]
+
+        if isinstance(layer, cfg.ConvBn2D):
+            xf = folded_input(ik.single_key)
+            if xf is None:
+                return None
+            m = self._node(key)
+            out_f, new_state = fold_region.fold_conv_bn_apply(
+                m.params(), m.state(), xf, layer, train)
+            if train:
+                m.write_state(new_state)
+        else:  # Sum2D / DarknetShortcut over inputs of one shape
+            ins = [folded_input(k) for k in ik.iter_keys()]
+            if any(t is None for t in ins):
+                return None
+            out_f = ins[0]
+            for other in ins[1:]:
+                out_f = out_f + other
+            if isinstance(layer, cfg.DarknetShortcut):
+                out_f = activations.apply(layer.act, out_f)
+        return out_f.detach() if key in self._sg_keys else out_f
 
     def _apply_dense_node(self, key: int, layer, x: Tensor, train: bool) -> Tensor:
         """A Linear or recurrent node (``ops/recurrent.py``); in training,
@@ -497,12 +702,32 @@ class GraphModel(nn.Module):
             raise ValueError(f"unknown data_format {data_format!r}")
 
         outputs: Dict[int, object] = dict(node_overrides or {})
+        done = self._run_spd(x, train, run, output_keys, node_overrides, outputs)
+        # W-folded region outputs; a region node's unfolded output is made
+        # only where something outside the region reads it (unfolded())
+        folded: Dict[int, Tensor] = {}
+        fold = (bool(self._fold_keys) and node_subset is None
+                and not self._sharded(self._fold_convs))
+
+        def unfolded(k: int):
+            if k not in outputs and k in folded:
+                outputs[k] = fold_region.unfold_w(folded[k])
+            return outputs[k]
+
         for key in self.graph.order:
-            if key in outputs or (run is not None and key not in run):
+            if key in outputs or key in done or (run is not None and key not in run):
                 continue
             node = self.graph.nodes[key]
             layer = node.config
             ik = node.input_keys
+            if fold and key in self._fold_keys:
+                out_f = self._apply_fold_node(key, layer, ik, outputs, folded, train)
+                if out_f is not None:
+                    folded[key] = out_f
+                    continue
+            if folded:
+                for k in ik.iter_keys():
+                    unfolded(k)
 
             if isinstance(layer, cfg.Input):
                 if ik.kind == "placeholder":
@@ -615,8 +840,8 @@ class GraphModel(nn.Module):
             if key in self._sg_keys:
                 outputs[key] = _detach(outputs[key])
         if output_keys is not None:
-            return {k: outputs[k] for k in output_keys}
-        return outputs[self.output_key]
+            return {k: unfolded(k) for k in output_keys}
+        return unfolded(self.output_key)
 
     @torch.no_grad()
     def clamp_running_vars(self) -> None:
@@ -644,7 +869,8 @@ class YoloModel(GraphModel):
     class count (model.rs:330-353)."""
 
     def __init__(self, graph: Graph, *, device="cuda",
-                 generator: Optional[torch.Generator] = None, remat: str = "off"):
+                 generator: Optional[torch.Generator] = None, remat: str = "off",
+                 spd_stem: str = "off", fold_region: str = "off"):
         out = graph.nodes[graph.output_node().key]
         if out.output_shape.kind != MERGE_DETECT_2D:
             raise ValueError(
@@ -656,6 +882,7 @@ class YoloModel(GraphModel):
         classes = {n.config.classes for n in det_nodes}
         if len(classes) != 1:
             raise ValueError(f"Detect2D heads disagree on num_classes: {classes}")
-        super().__init__(graph, device=device, generator=generator, remat=remat)
+        super().__init__(graph, device=device, generator=generator, remat=remat,
+                         spd_stem=spd_stem, fold_region=fold_region)
         self.num_classes: int = classes.pop()
         self.anchors: Tuple = tuple(n.config.anchors for n in det_nodes)
