@@ -346,7 +346,32 @@ result line:
    launched once per evaluated batch on rank 0 (none on rank 1); last,
    detect_main in this process on that checkpoint over the workspace's 8
    images, one launch of each B1 kernel per batch of 4.
-16. spatial — spatial parallelism (ROADMAP A14d,
+16. recurrent_parallel — recurrent nodes under tensor and pipeline
+   parallelism over several data ranks (parallel/tp.py SequenceShard,
+   mesh.py gather_rows_summed): yolov3-tiny_occlusion_track.cfg (two
+   [crnn] with BN) at its own 416² and time_steps 20, seed-0 weights, a
+   global micro-batch of 40 rows (2 sequences), one class; four ranks on
+   cuda:0 over gloo (launch_ranks, rp_rank), TF32 off and cuDNN
+   deterministic.  Rank 0 first takes alone one f32 SGD step (lr 1e-2) of
+   one process, the same on images 1 ulp up (the control), and bf16 steps
+   (TrainConfig(compute_dtype="bfloat16"), one warm-up and 2 timed), on
+   the 40 rows and, with 2 micro-batches, on 80.  Then all four: TP 2×2
+   (make_tp_train_step; every recurrent sub-layer cut) and the pipeline
+   of 2 stages × dp 2 with 2 micro-batches, each one f32 SGD step: the
+   loss within rel 1e-5 of one process's; as phase tp holds them, every
+   tensor after the step and every gradient (the momentum buffer) within
+   max(1e-4, 10 × the control's worst) · max of one process's, the worst
+   over its own control printed beside; the BN running statistics equal
+   on the data ranks of a model index (TP) or a stage (pipeline), by
+   sha256;
+   make_tp_infer within 1e-4 · max of one process's forward, and its NMS
+   with B1's counters zeroed right before and read right after, one
+   launch of each kernel.  Then each mode's bf16 step: ms by CUDA events
+   (one warm-up, 2 timed), the host ms inside the recurrent nodes' row
+   gathers (forward and backward), and each rank's peak memory beside one
+   process's.  Every failed gate is printed in the phase line, then the
+   phase raises.
+17. spatial — spatial parallelism (ROADMAP A14d,
    yolodl_torch/parallel/spatial.py and spatial_model.py): the image
    height cut over 2 ranks on cuda:0 over gloo (launch_ranks,
    spatial_rank), TF32 off and cuDNN deterministic for f32.  yolov4-csp
@@ -376,7 +401,7 @@ result line:
    0.5; in f32, rounding alone moves a BN scale's change by 3e-2).  Last,
    three timed bf16 steps (SGD, one warm-up) of each: step ms and the host
    ms inside the transfers.
-17. layout — the reference's layout rewrites (ROADMAP A15,
+18. layout — the reference's layout rewrites (ROADMAP A15,
    yolodl_torch/ops/spd_stem.py, fold_region.py, wgrad.py).  yolov4-csp at
    608², seed-0 weights with seeded BN, built five times from one state
    dict: every knob off, spd_stem "auto", "deep", fold_region "on", and
@@ -403,7 +428,7 @@ result line:
    (mm with an f32 output on the card), and the dW's ms and peak bytes
    beside wgrad_lowch's and wgrad_db's (stride 1), conv2d_weight's on
    the same NCHW operands, and its bound.
-18. card  — `nvidia-smi --query-gpu=name,power.limit` as it prints it.
+19. card  — `nvidia-smi --query-gpu=name,power.limit` as it prints it.
 
 After the last phase a line gives each phase's wall seconds (`timing`).
 The line before the last lists the kernels; the last line is
@@ -535,6 +560,16 @@ PP_ACCUM = 2                  # micro-batches a step (b16 -> 2 of 8 rows)
 PP_F32_TOL = 1e-4             # pipeline vs one process, f32: max|d| / max|ref| per tensor
 PP_TIMED = 2                  # bf16 steps timed after one warm-up step
 PP_TIMEOUT = 900              # seconds for the ranks of each run
+# phase recurrent_parallel: occlusion_track (two [crnn] with BN) at its own
+# 416² and time_steps 20, over 4 ranks sharing the card
+RP_ROOT = os.path.join(REPO, "build", "chip_smoke_recurrent")  # removed at the end
+RP_ROWS = 40                  # a global micro-batch: 2 sequences of 20 frames
+RP_ACCUM = 2                  # the pipeline's micro-batches a step (80 rows)
+RP_LOSS_TOL = 1e-5            # the f32 loss against one process's, relative
+RP_F32_TOL = 1e-4             # f32 step, every tensor and gradient: max|d| / max|one|
+RP_CONTROL_FACTOR = 10        # ... or 10x one process's worst on images 1 ulp up
+RP_TIMED = 2                  # bf16 steps timed after one warm-up step
+RP_TIMEOUT = 600              # seconds for the ranks
 SPATIAL_ROOT = os.path.join(REPO, "build", "chip_smoke_spatial")  # removed at the end
 SPATIAL_INFER = [[608, 8], [1216, 2]]  # (size, batch) of the spatial inference checks
 SPATIAL_TRAIN = [608, 8]      # the 1 x 2 train step's size and global batch
@@ -4928,6 +4963,338 @@ def phase_pp() -> dict:
     return {"pp_train_main_eval": cli_launches, "pp_detect_main": detect["launches"]}
 
 
+def bn_digest(model) -> str:
+    """sha256 over every BN running statistic's bytes, in state_dict order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in model.state_dict().items():
+        if k.endswith((".mean", ".var")):
+            h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def timed_row_gathers(log):
+    """Time (host clock) each forward and backward of the recurrent nodes'
+    row gather (``parallel/mesh.py`` ``gather_rows_summed``): under gloo a
+    card's rows are staged through the host, and the call returns when
+    they are back."""
+    from yolodl_torch.parallel import mesh
+
+    cls = mesh._GatherRowsSummed
+    saved = cls.__dict__["forward"], cls.__dict__["backward"]
+
+    def timing(fn):
+        def wrapped(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            log.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return staticmethod(wrapped)
+
+    cls.forward, cls.backward = timing(saved[0].__func__), timing(saved[1].__func__)
+    try:
+        yield
+    finally:
+        cls.forward, cls.backward = saved
+
+
+def step_tensors(state, grads) -> dict:
+    """A step's outcome as phase tp compares it: every state_dict tensor
+    after the step and every parameter's gradient (SGD's momentum buffer
+    after one step), on the host."""
+    out = {k: v.detach().cpu() for k, v in state.items()}
+    out.update({f"grad/{k}": v.detach().cpu() for k, v in grads.items()})
+    return out
+
+
+def of_max_errors(tensors, ref) -> dict:
+    """max|d| / max|ref| of every tensor of ``ref``."""
+    return {k: float((tensors[k].to(torch.float64) - r.to(torch.float64)).abs().max())
+            / max(float(r.abs().max()), 1e-30) for k, r in ref.items()}
+
+
+def rp_rank() -> None:
+    """One rank of phase recurrent_parallel's 4-rank run (``python3 -c
+    "import chip_smoke; chip_smoke.rp_rank()"`` under launch_ranks'
+    variables): rank 0 first takes the single-process steps alone (f32 SGD
+    and its 1-ulp control, bf16 timed), then all four ranks the same steps
+    under tensor parallelism 2×2 and as a pipeline of 2 stages × dp 2;
+    results to RP_ROOT/rank<r>.json.  The device and sizes come from
+    RP_ROOT/spec.json, written by the parent."""
+    sys.path.insert(0, REPO)
+    with open(os.path.join(RP_ROOT, "spec.json")) as f:
+        spec = json.load(f)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    from yolodl_torch.bridge import params_from_jax
+    from yolodl_torch.config import darknet_cfg as dk
+    from yolodl_torch.graph.from_darknet import graph_from_darknet
+    from yolodl_torch.kernels import iou
+    from yolodl_torch.loss import non_max_suppression
+    from yolodl_torch.models import YoloModel
+    from yolodl_torch.parallel import (PipelineModel, PipelineTrainStep, gather_train_state,
+                                       init_process_group, make_pp_mesh, make_tp_infer,
+                                       make_tp_mesh, make_tp_train_step, place_tp_state,
+                                       shard_batch_tp, tp_shardings)
+    from yolodl_torch.parallel.mesh import destroy_process_group
+    from yolodl_torch.parallel.tp import _RECURRENT
+    from yolodl_torch.train import TrainConfig, make_train_step, train_init
+    from yolodl_torch.train.loop import _optax_layout
+    from yolodl_torch.train.lr_schedule import LrScheduleConfig
+
+    world = init_process_group(spec["device"])
+    device, on_card = world.device, world.device.type == "cuda"
+    darknet = dk.Darknet.load(OCCLUSION_CFG)
+    size, rows = spec["image_size"], spec["rows"]
+
+    def model_fn():
+        return YoloModel(graph_from_darknet(darknet), device=device,
+                         generator=torch.Generator().manual_seed(0))
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+
+    def fresh():
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def batch_of(n, seed):  # the cfg has one class
+        images, boxes, classes, mask = synthetic_batch(n, size, seed)
+        return [torch.from_numpy(a).to(device)
+                for a in (images, boxes, np.zeros_like(classes), mask)]
+
+    sgd = TrainConfig(optimizer="sgd", lr=LrScheduleConfig(kind="constant", lr=1e-2))
+    bf16 = TrainConfig(compute_dtype="bfloat16")
+    batches = {"tp": (batch_of(rows, 8), 1), "pp": (batch_of(rows * spec["accum"], 9),
+                                                     spec["accum"])}
+    out = {"rank": world.rank, "backend": world.backend, "reason": world.reason}
+    ref = {}
+    if world.rank == 0:  # the other ranks wait in make_tp_mesh meanwhile
+        for mode, (batch, accum) in batches.items():
+            for name, nudge in (("single", False), ("control", True)):
+                fresh()
+                model = model_fn()
+                ts, opt = train_init(model, sgd)
+                b = list(batch)
+                if nudge:  # the same step on images 1 ulp up: rounding alone
+                    b[0] = torch.nextafter(b[0], torch.tensor(float("inf"), device=device))
+                _, m = make_train_step(model, opt, sgd, accum=accum)(ts, *b)
+                ref[mode, name] = {
+                    "loss": float(m["total_loss"]), "peak_gb": peak_gb(),
+                    "tensors": step_tensors(model.state_dict(), {
+                        k: opt.state[p]["momentum_buffer"]
+                        for k, p in model.named_parameters()})}
+                if mode == "tp" and not nudge:  # rank 0 holds the first half of the rows
+                    with torch.no_grad():
+                        ref["infer"] = model(batch[0]).cycxhw[:rows // 2].cpu()
+                del model, opt, ts, b
+            fresh()
+            model = model_fn()
+            ts, opt = train_init(model, bf16)
+            step = make_train_step(model, opt, bf16, accum=accum)
+            out[f"{mode}_single_bf16"] = {
+                "step_ms": [timed_ms(lambda: step(ts, *batch), device)
+                            for _ in range(1 + spec["timed"])][1:], "peak_gb": peak_gb()}
+            del model, opt, ts, step
+
+    def checked(mode, loss, tensors):
+        """The f32 step's loss and every tensor and gradient on rank 0
+        against the single process's, beside its 1-ulp control's: phase
+        tp's rule, each within max(RP_F32_TOL, RP_CONTROL_FACTOR × the
+        control's worst) of its max."""
+        single, control = ref[mode, "single"], ref[mode, "control"]
+        got = of_max_errors(tensors, single["tensors"])
+        ctl = of_max_errors(control["tensors"], single["tensors"])
+        worst, c_worst = max(got, key=got.get), max(ctl, key=ctl.get)
+        bound = max(RP_F32_TOL, RP_CONTROL_FACTOR * ctl[c_worst])
+        return {"loss": loss, "single_loss": single["loss"], "control_loss": control["loss"],
+                "tensors": len(got), "worst": worst, "err_of_max": got[worst],
+                "control_worst": c_worst, "control_err_of_max": ctl[c_worst], "bound": bound,
+                "over_bound": sorted(k for k in got if got[k] > bound),
+                "worst_over_own_control": max(got[k] / max(RP_F32_TOL, ctl[k]) for k in got),
+                "single_f32_peak_gb": single["peak_gb"]}
+
+    def timed_steps(step, ts, batch):
+        log, step_ms, gather_ms, gathers, losses = [], [], [], [], []
+        fresh()
+        with timed_row_gathers(log):
+            for i in range(1 + spec["timed"]):
+                log.clear()
+                ms = timed_ms(lambda: losses.append(float(step(ts, *batch)[1].get(
+                    "total_loss", float("nan")))), device)
+                if i:
+                    step_ms.append(ms)
+                    gather_ms.append(sum(log))
+                    gathers.append(len(log))
+        return {"bf16_step_ms": step_ms, "gather_host_ms": gather_ms, "gathers": gathers,
+                "bf16_losses": losses, "bf16_peak_gb": peak_gb()}
+
+    # tensor parallelism 2×2: one f32 SGD step, make_tp_infer + NMS, bf16
+    tp = make_tp_mesh(2, 2)
+    batch, _ = batches["tp"]
+    model = model_fn()
+    plan = tp_shardings(tp, model)
+    ts, opt = train_init(model, sgd)
+    ts = place_tp_state(tp, ts)
+    local = shard_batch_tp(tp, batch)
+    fresh()
+    _, m = make_tp_train_step(model, opt, sgd, tp)(ts, *local)
+    tp_out = {"sharded_leaves": sum(v is not None for v in plan.values()), "leaves": len(plan),
+              "f32_peak_gb": peak_gb(), "loss": float(m["total_loss"]),
+              "bn_digest": bn_digest(model), "digest": param_digest(model)}
+    full = gather_train_state(tp, ts, sgd)
+    pred = make_tp_infer(model, tp)(local[0])
+    if full is not None:
+        tp_out.update(checked("tp", tp_out["loss"], step_tensors(full.model.state_dict(), {
+            k: full.optimizer.state[p]["momentum_buffer"]
+            for k, p in full.model.named_parameters()})))
+        tp_out["infer_err_of_max"] = float((pred.cycxhw.cpu() - ref["infer"]).abs().max()) / \
+            float(ref["infer"].abs().max())
+        for fn in (iou.nms_conflict_bits, iou.nms_keep_from_bits):
+            fn.launches = 0
+        nms = non_max_suppression(pred, iou_threshold=NMS_IOU, class_mode="argmax")
+        if on_card:
+            torch.cuda.synchronize()
+        tp_out["nms_launches"] = {fn.__name__: fn.launches
+                                  for fn in (iou.nms_conflict_bits, iou.nms_keep_from_bits)}
+        tp_out["nms_kept"] = int(nms.valid.sum())
+        del full
+    ts, opt = train_init(model, bf16)
+    tp_out.update(timed_steps(make_tp_train_step(model, opt, bf16, tp), ts, local))
+    out["tp"] = tp_out
+    del model, opt, ts, pred
+
+    # the pipeline, 2 stages x dp 2, 2 micro-batches: one f32 SGD step, bf16
+    mesh = make_pp_mesh(2, 2)
+    batch, accum = batches["pp"]
+    local = shard_batch_tp(mesh, batch, accum)
+    if mesh.stage:
+        local = [torch.empty(t.shape, dtype=t.dtype, device="meta") for t in local]
+    fresh()
+    pp = PipelineModel(model_fn(), mesh)
+    ts = PipelineTrainStep(pp, sgd, accum).init_opt()
+    ts, m = PipelineTrainStep(pp, sgd, accum).step_fn()(ts, *local)
+    pp_out = {"stage_nodes": [len(p.keys) for p in pp.stages],
+              "boundary": [pp.model._pname[k] for k in pp.stages[1].in_keys],
+              "recurrent_by_stage": [[pp.model._pname[k] for k in p.keys
+                                      if isinstance(pp.model.graph.nodes[k].config, _RECURRENT)]
+                                     for p in pp.stages],
+              "f32_peak_gb": peak_gb(), "bn_digest": bn_digest(pp.model),
+              "digest": param_digest(pp.model)}
+    trees = ts.merged(pp, sgd)
+    if trees is not None:
+        whole = model_fn()
+        params_from_jax(trees[0], trees[1], model=whole)
+        moments = trees[2]
+        for key in _optax_layout(sgd)[0].split("/"):
+            moments = moments[key]
+        pp_out.update(checked("pp", float(m["total_loss"]), step_tensors(
+            whole.state_dict(), params_from_jax(moments[".trace"], {}))))
+        del whole
+    del pp, ts
+    pp = PipelineModel(model_fn(), mesh)
+    step = PipelineTrainStep(pp, bf16, accum)
+    pp_out.update(timed_steps(step.step_fn(), step.init_opt(), local))
+    out["pp"] = pp_out
+    with open(os.path.join(RP_ROOT, f"rank{world.rank}.json"), "w") as f:
+        json.dump(out, f)
+    destroy_process_group()
+
+
+def rp_four_ranks() -> dict:
+    """TP 2×2 and the pipeline of 2 stages × dp 2 on four ranks sharing one
+    card over gloo → (summary, the list of failed gates)."""
+    from yolodl_torch.parallel.mesh import launch_ranks
+
+    write_json(os.path.join(RP_ROOT, "spec.json"), {
+        "device": f"{DEVICE}:0" if DEVICE == "cuda" else DEVICE, "image_size": OCCLUSION_SIZE,
+        "rows": RP_ROWS, "accum": RP_ACCUM, "timed": RP_TIMED})
+    t0 = time.perf_counter()
+    launch_ranks([sys.executable, "-c", "import chip_smoke; chip_smoke.rp_rank()"], 4,
+                 env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO, timeout=RP_TIMEOUT)
+    wall_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(4):
+        with open(os.path.join(RP_ROOT, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    r0 = ranks[0]
+    failed = []
+    want = "ranks share cuda:0" if DEVICE == "cuda" else "ranks run on the CPU"
+    if r0["backend"] != "gloo" or r0["reason"] != want:
+        failed.append(f"4 ranks on one card: {r0['backend']} ({r0['reason']})")
+    # the ranks of one data group: TP's data ranks of one model index (r, r + 2),
+    # the pipeline's of one stage (2s, 2s + 1)
+    groups = {"tp": ((0, 2), (1, 3)), "pp": ((0, 1), (2, 3))}
+    for mode in ("tp", "pp"):
+        g = r0[mode]
+        if not abs(g["loss"] - g["single_loss"]) <= RP_LOSS_TOL * abs(g["single_loss"]):
+            failed.append(f"{mode} f32 loss {g['loss']} vs one process {g['single_loss']}")
+        if g["over_bound"]:
+            failed.append(f"{mode} f32: {len(g['over_bound'])} tensors over {g['bound']} of "
+                          f"max, worst {g['worst']} {g['err_of_max']} (the 1-ulp control's "
+                          f"worst: {g['control_worst']} {g['control_err_of_max']})")
+        for a, b in groups[mode]:
+            if ranks[a][mode]["bn_digest"] != ranks[b][mode]["bn_digest"]:
+                failed.append(f"{mode}: BN running statistics differ between ranks {a} and {b}")
+        losses = [x for r in ranks for x in r[mode]["bf16_losses"] if not np.isnan(x)]
+        if not losses or not all(np.isfinite(losses)):
+            failed.append(f"{mode} bf16 losses {losses}")
+    t = r0["tp"]
+    if not t["infer_err_of_max"] <= RP_F32_TOL:
+        failed.append(f"make_tp_infer vs one process: {t['infer_err_of_max']} of max")
+    if DEVICE == "cuda" and set(t["nms_launches"].values()) != {1}:
+        failed.append(f"NMS after make_tp_infer: launches {t['nms_launches']}")
+    summary = {"backend": r0["backend"], "reason": r0["reason"], "wall_s": wall_s}
+    for mode in ("tp", "pp"):
+        summary[mode] = {**r0[mode], "single_bf16": r0[f"{mode}_single_bf16"],
+                         "ranks_bn_equal": [ranks[a][mode]["bn_digest"] == ranks[b][mode][
+                             "bn_digest"] for a, b in groups[mode]],
+                         "ranks_state_equal": [ranks[a][mode]["digest"] == ranks[b][mode][
+                             "digest"] for a, b in groups[mode]],
+                         "rank_peak_gb": [{"f32": r[mode]["f32_peak_gb"],
+                                           "bf16": r[mode]["bf16_peak_gb"]} for r in ranks],
+                         "rank_bf16_step_ms": [r[mode]["bf16_step_ms"] for r in ranks],
+                         "rank_gather_host_ms": [r[mode]["gather_host_ms"] for r in ranks]}
+        for key in ("bn_digest", "digest"):
+            summary[mode].pop(key)
+    return summary, failed
+
+
+def phase_recurrent_parallel() -> dict:
+    """Recurrent nodes under tensor and pipeline parallelism over several
+    data ranks: yolov3-tiny_occlusion_track (two [crnn] with BN, its
+    time_steps 20) at 416², a global micro-batch of RP_ROWS rows (2
+    sequences), seed-0 weights; TP 2×2 and the pipeline of 2 stages × dp 2
+    (RP_ACCUM micro-batches) on four ranks sharing the card.  Gates: the
+    f32 step's loss within RP_LOSS_TOL of one process's, every tensor and
+    gradient within max(RP_F32_TOL, RP_CONTROL_FACTOR × the 1-ulp
+    control's worst) of max, the BN running statistics equal on all data
+    ranks,
+    make_tp_infer within RP_F32_TOL of one process's forward and one launch
+    of each B1 kernel for its NMS, finite bf16 losses.  Every failed gate
+    is printed in the phase line, then the phase raises."""
+    import shutil
+
+    t0 = time.perf_counter()
+    shutil.rmtree(RP_ROOT, ignore_errors=True)
+    os.makedirs(RP_ROOT)
+    try:
+        summary, failed = rp_four_ranks()
+    finally:
+        shutil.rmtree(RP_ROOT, ignore_errors=True)
+    emit({"phase": "recurrent_parallel", "model": "yolov3-tiny_occlusion_track",
+          "image_size": OCCLUSION_SIZE, "rows": RP_ROWS, "micro_batches": RP_ACCUM,
+          **summary, "failed": failed, "seconds": time.perf_counter() - t0,
+          "card": card_line()})
+    if failed:
+        raise AssertionError("phase recurrent_parallel: " + "; ".join(failed))
+    return {"recurrent_tp_infer_nms": summary["tp"]["nms_launches"]}
+
+
 def spatial_rank() -> None:
     """One rank of phase spatial's 2-rank run (``python3 -c "import
     chip_smoke; chip_smoke.spatial_rank()"`` under launch_ranks' variables):
@@ -5623,6 +5990,7 @@ def main() -> int:
         by_path.update(run("dp", phase_dp, iou))
         by_path.update(run("tp", phase_tp))
         by_path.update(run("pp", phase_pp))
+        by_path.update(run("recurrent_parallel", phase_recurrent_parallel))
         by_path.update(run("spatial", phase_spatial))
         by_path.update(run("layout", phase_layout, iou))
     finally:  # also when a phase fails

@@ -375,16 +375,10 @@ def random_targets(batch, max_gt, seed, num_classes=80):
 
 
 def named_leaves(tree):
-    """{'<node>/<leaf>' or '<node>/bn/<leaf>': np.ndarray} of a reference
-    params or state tree (the spelling of the reference's tree paths)."""
-    out = {}
-    for path, node in tree.items():
-        for k, v in node.items():
-            if isinstance(v, dict):
-                out.update({f"{path}/{k}/{kk}": np.asarray(vv) for kk, vv in v.items()})
-            else:
-                out[f"{path}/{k}"] = np.asarray(v)
-    return out
+    """{'<node>/<leaf>', '<node>/bn/<leaf>' or '<node>/<sub>/…/<leaf>':
+    np.ndarray} of a reference params or state tree (the spelling of the
+    reference's tree paths; :func:`flat_leaves`, at any depth)."""
+    return flat_leaves(tree)
 
 
 def assert_forward_matches(cfg_name, size=64, models=None):
@@ -1198,7 +1192,8 @@ def wait_ranks(procs, timeout=120):
     """Wait for every rank; each must exit 0.  A rank that fails or does
     not end within ``timeout`` fails the test with every rank's exit code
     and stderr (the others are killed first), so that a fault one rank
-    causes shows beside the rank where it surfaced."""
+    causes shows beside the rank where it surfaced.  → every rank's
+    stderr."""
     import subprocess
 
     errs, late = [], False
@@ -1214,6 +1209,7 @@ def wait_ranks(procs, timeout=120):
     assert not late and codes == [0] * len(procs), "\n".join(
         f"rank {r} exited {c}{' (killed after the timeout)' if late else ''}:\n{e}"
         for r, (c, e) in enumerate(zip(codes, errs)))
+    return errs
 
 
 def dp_batches(n, batch, size=TRAIN_SIZE, seed=0, num_classes=80):
@@ -1586,10 +1582,10 @@ def first_batches(streams, n):
 # errors).  Rank
 # 0 writes the metrics, the merged state after the first and the last
 # step; the last stage's ranks write their forward outputs; every rank
-# writes the state_dict keys it holds.  It imports neither JAX nor the
-# reference.
+# writes the state_dict keys it holds and, after a "step" case, a digest
+# of its state.  It imports neither JAX nor the reference.
 PP_RANK_SCRIPT = r"""
-import json, sys
+import hashlib, json, sys
 import numpy as np, torch
 torch.set_num_threads(1)
 from yolodl_torch.bridge import params_to_jax
@@ -1709,6 +1705,10 @@ for name, case in spec["cases"].items():
                 which = "first" if i == 0 and case["steps"] > 1 else "final"
                 flat(trees[0], f"{name}/{which}/params/")
                 flat(trees[1], f"{name}/{which}/state/")
+    digest = hashlib.sha256()
+    for v in model.state_dict().values():
+        digest.update(v.numpy().tobytes())
+    out[f"{name}/digest/{world.rank}"] = np.asarray(digest.hexdigest())
 np.savez(f"{spec['out']}.r{world.rank}.npz", **out)
 destroy_process_group()
 """
@@ -1739,6 +1739,104 @@ def pp_batches(n=2, size=96):
     rng = np.random.default_rng(3)
     return [(rng.uniform(0, 1, (4, 3, size, size)).astype(np.float32),
              *random_targets(4, 4, 10 + i, num_classes=3)) for i in range(n)]
+
+
+# -- recurrent nodes under tensor and pipeline parallelism
+# (test_torch_tp_recurrent.py, test_torch_pp_recurrent.py): a 32² detector
+# of two [yolo] heads whose paths hold a [crnn] on 16×16 maps, and after a
+# global average pool an [lstm], an [rnn] and a 1×1 [crnn]; time_steps 2.
+# ``bn`` sets batch_normalize of the first [crnn] and the [rnn] (the
+# [lstm] and the last [crnn] have none either way).  The 16-channel conv
+# after the first [crnn] makes plan_stages cut 2 stages just after it, so
+# that stage 0 of a pipeline ends in a recurrent node.
+
+def recurrent_cfg(bn=True):
+    b = int(bn)
+    yolo = ("[yolo]\nmask = {}\nanchors = 4,6, 8,10, 12,14, 10,14, 23,27, 37,58\n"
+            "classes=1\nnum=6\nignore_thresh = .7\ntruth_thresh = 1\nrandom=0\n")
+    return f"""[net]
+width=32
+height=32
+channels=3
+time_steps=2
+
+[convolutional]
+batch_normalize=1
+filters=8
+size=3
+stride=2
+pad=1
+activation=leaky
+
+[crnn]
+batch_normalize={b}
+size=3
+pad=1
+output=8
+hidden=8
+activation=leaky
+
+[convolutional]
+batch_normalize=1
+filters=16
+size=3
+stride=2
+pad=1
+activation=leaky
+
+[convolutional]
+size=1
+stride=1
+pad=1
+filters=18
+activation=linear
+
+{yolo.format("3,4,5")}
+[route]
+layers = -3
+
+[avgpool]
+
+[lstm]
+batch_normalize=0
+output=8
+
+[rnn]
+batch_normalize={b}
+output=8
+hidden=8
+activation=leaky
+
+[crnn]
+batch_normalize=0
+size=1
+pad=0
+output=18
+hidden=8
+activation=linear
+
+{yolo.format("0,1,2")}"""
+
+
+def recurrent_detector(tmp_path, bn=True):
+    """:func:`recurrent_cfg` written under ``tmp_path`` → (cfg path,
+    reference model, its seeded params and state, the port's model holding
+    them, a copy of its state_dict)."""
+    path = tmp_path / f"recurrent_bn{int(bn)}.cfg"
+    path.write_text(recurrent_cfg(bn))
+    jm = JYoloModel(j_load(str(path)), spd_stem="off")
+    params, state = seeded_trees(jm.init, 0)
+    tm = YoloModel(t_load(str(path)), device="cpu")
+    params_from_jax(params, state, model=tm)
+    return str(path), jm, params, state, tm, {k: v.clone() for k, v in tm.state_dict().items()}
+
+
+def recurrent_batches(n, rows, seed=0):
+    """``n`` seeded global batches of ``rows`` 32² images (8 rows a time
+    step at 16) with 4 targets an image of the one class."""
+    rng = np.random.default_rng(seed)
+    return [(rng.uniform(0, 1, (rows, 3, 32, 32)).astype(np.float32),
+             *random_targets(rows, 4, seed * 10 + i, num_classes=1)) for i in range(n)]
 
 
 def start_pp_ranks(tmp_path, cases, batches, n):

@@ -35,8 +35,8 @@ from _torch_parity import (REPO, TINY_BN, assert_trees_close, fake_batches, flat
 from yolodl_tpu.parallel.tp import _leaf_spec
 from yolodl_torch.bridge import params_to_jax
 from yolodl_torch.graph import Graph
-from yolodl_torch.models import YoloModel
-from yolodl_torch.parallel.tp import leaf_spec, tp_shardings
+from yolodl_torch.models.builder import GraphModel, module_key
+from yolodl_torch.parallel.tp import _RECURRENT, leaf_spec, tp_shardings
 
 torch.set_num_threads(2)
 
@@ -186,12 +186,18 @@ def test_local_leaves_are_halved(runs):
     assert shapes["layers.head.w"] == [7, 16, 1, 1]
 
 
-@pytest.mark.parametrize("kind,name", [("darknet", "yolov4-csp"),
-                                       ("newslab", "yolov4-csp-custom-64x64-2021-08-21")])
-def test_sharded_leaf_count_equals_the_reference(kind, name):
-    """On the flagship and on cfg/train.json5's NEWSLAB model, the leaves
-    the port cuts over a model axis of 2 are as many as the reference's
-    ``_leaf_spec`` picks over the bridged (params, state) trees."""
+@pytest.mark.parametrize("kind,name,least", [
+    ("darknet", "yolov4-csp", 100), ("newslab", "yolov4-csp-custom-64x64-2021-08-21", 100),
+    # the six parsable cfgs with recurrent nodes, whose sub-layers are cut
+    ("darknet", "crnn.train", 40), ("darknet", "gru", 90), ("darknet", "lstm.train", 120),
+    ("darknet", "rnn", 40), ("darknet", "rnn.train", 40),
+    ("darknet", "yolov3-tiny_occlusion_track", 90)])
+def test_sharded_leaf_count_equals_the_reference(kind, name, least):
+    """On the flagship, on cfg/train.json5's NEWSLAB model and on every
+    cfg with a recurrent node, the leaves the port cuts over a model axis
+    of 2 are as many as the reference's ``_leaf_spec`` picks over the
+    bridged (params, state) trees, and more than ``least``; on a recurrent
+    cfg that includes every leaf of each sub-layer whose outputs divide."""
     import os
 
     from yolodl_torch.graph.from_darknet import load_darknet_graph
@@ -200,13 +206,23 @@ def test_sharded_leaf_count_equals_the_reference(kind, name):
         graph = load_darknet_graph(os.path.join(REPO, "cfg", "darknet", f"{name}.cfg"))
     else:
         graph = Graph.load_newslab_v1_json(os.path.join(REPO, "cfg", "model", f"{name}.json5"))
-    model = YoloModel(graph, device="cpu")
+    model = GraphModel(graph, device="cpu")
     plan = tp_shardings(types.SimpleNamespace(n_model=2), model)
     mine = sum(v is not None for v in plan.values())
     params, state = params_to_jax(model.state_dict())
     theirs = sum(_leaf_spec(v, 2) != () for tree in (params, state)
                  for v in flat_leaves(tree).values())
-    assert mine == theirs > 100
+    assert mine == theirs > least
+    checked = 0
+    for key in graph.order:
+        if isinstance(graph.nodes[key].config, _RECURRENT):
+            prefix = f"layers.{module_key(model._pname[key])}."
+            for k in plan:
+                if k.startswith(prefix):
+                    sub = model._node(key)[k[len(prefix):].split(".")[0]]
+                    assert (plan[k] is not None) == (sub.w.shape[0] % 2 == 0), k
+                    checked += 1
+    assert checked > 0 or kind == "newslab" or name == "yolov4-csp"
 
 
 # a grouped conv whose 4 groups divide over the model axis, then two

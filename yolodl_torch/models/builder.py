@@ -44,8 +44,10 @@ again at the recompute and apply the momentum twice.
 
 Under tensor parallelism (``parallel/tp.py``) a conv or Linear node holds
 this rank's output channels and its ``shard`` (a ``LayerShard``), which
-the node's apply function calls around the conv and for BN; the graph
-walk is the same.
+the node's apply function calls around the conv and for BN; a recurrent
+node holds a ``SequenceShard`` (its time loop over the micro-batch's
+global rows, its sub-layers' ``LayerShard``s), under pipeline parallelism
+too; the graph walk is the same.
 
 The reference's layout rewrites, behind its own knobs; each changes only
 the plan, never the parameters or their names:
@@ -265,8 +267,10 @@ class SubLayers(nn.ModuleDict):
     """The named sub-layers of one node (the sub-convs of a DarkCsp2D or
     SppCsp2D block, the connected sub-layers of [rnn]/[gru]/[lstm], the
     sub-convs of [crnn]); ``params()``/``state()`` give the nested trees
-    that the node's apply function takes.  The node is never sharded as a
-    whole (``shard`` None); under tensor parallelism its sub-layers are."""
+    that the node's apply function takes.  The node is never cut as a
+    whole; under tensor parallelism its sub-layers are.  A recurrent node's
+    ``shard`` is its parallel context (``parallel/tp.py``
+    ``SequenceShard``) under tensor or pipeline parallelism, else None."""
 
     shard = None
 
@@ -610,9 +614,10 @@ class GraphModel(nn.Module):
         return out_f.detach() if key in self._sg_keys else out_f
 
     def _apply_dense_node(self, key: int, layer, x: Tensor, train: bool) -> Tensor:
-        """A Linear or recurrent node (``ops/recurrent.py``); in training,
-        the running statistics after its last time step are written into
-        the buffers."""
+        """A Linear or recurrent node (``ops/recurrent.py``), with its
+        parallel context ``shard`` (a Linear's ``LayerShard``, a recurrent
+        node's ``SequenceShard``); in training, the running statistics
+        after its last time step are written into the buffers."""
         m = self._node(key)
         params, state = m.params(), m.state()
         if isinstance(layer, cfg.Linear):
@@ -622,17 +627,20 @@ class GraphModel(nn.Module):
             out, new_state = recurrent.rnn_apply(
                 params, state, x, hidden=layer.hidden, act=layer.act,
                 self_act=layer.self_act, shortcut=layer.shortcut,
-                time_steps=layer.time_steps, train=train)
+                time_steps=layer.time_steps, train=train, shard=m.shard)
         elif isinstance(layer, cfg.DarknetGru):
             out, new_state = recurrent.gru_apply(
-                params, state, x, out_f=layer.out, time_steps=layer.time_steps, train=train)
+                params, state, x, out_f=layer.out, time_steps=layer.time_steps, train=train,
+                shard=m.shard)
         elif isinstance(layer, cfg.DarknetLstm):
             out, new_state = recurrent.lstm_apply(
-                params, state, x, out_f=layer.out, time_steps=layer.time_steps, train=train)
+                params, state, x, out_f=layer.out, time_steps=layer.time_steps, train=train,
+                shard=m.shard)
         else:
             out, new_state = recurrent.crnn_apply(
                 params, state, x, sub_cfgs=crnn_sub_cfgs(layer), hidden=layer.hidden,
-                shortcut=layer.shortcut, time_steps=layer.time_steps, train=train)
+                shortcut=layer.shortcut, time_steps=layer.time_steps, train=train,
+                shard=m.shard)
         if train:
             m.write_state(new_state)
         return out

@@ -21,7 +21,8 @@ SPMD program over a 1-D ``Mesh``.  The port runs one process per rank with
   :class:`DataMesh` on a group of its own; the collectives with a
   gradient that tensor parallelism and the synchronized batch norm need
   (:func:`copy_to_model`, :func:`gather_channels`, :func:`gather_rows`,
-  :func:`all_reduce_mean`) live here, beside ZeRO-1's reduce-scatter and
+  :func:`all_reduce_mean`, and :func:`gather_rows_summed` for a
+  recurrent node's rows) live here, beside ZeRO-1's reduce-scatter and
   all-gather (:meth:`DataMesh.reduce_scatter`, :meth:`DataMesh.all_gather`).
 - ``spatial.py``'s ``make_space_mesh`` (:104) and ``spatial_model.py``'s
   ``make_data_space_mesh`` (:306) become :func:`make_space_mesh` and
@@ -565,6 +566,36 @@ def gather_rows(x: torch.Tensor, axis) -> torch.Tensor:
     backward keeps this rank's rows of the gradient, with no sum (the loss
     after it is computed whole on every rank)."""
     return x if _single(axis) else _GatherAxis.apply(x, axis, 0)
+
+
+class _GatherRowsSummed(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return axis.all_gather(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        axis = ctx.axis
+        part = axis.reduce_scatter(grad.contiguous().reshape(-1))
+        return part.view(grad.shape[0] // axis.world_size, *grad.shape[1:]), None
+
+
+def gather_rows_summed(x: torch.Tensor, axis) -> torch.Tensor:
+    """Every rank's rows (dim 0) of ``x`` concatenated in ``axis`` order,
+    for code that runs on all the rows and then keeps this rank's block (a
+    recurrent node's time loop over a micro-batch's global rows,
+    ``parallel/tp.py`` :class:`SequenceShard`).  The backward is
+    :func:`gather_height`'s rule on dim 0, a reduce-scatter: each rank's
+    gradient of the gathered rows holds only what its own block of the
+    output reads, so the sum over the axis is the whole gradient, and each
+    rank gets its rows of it (:func:`gather_rows` would keep this rank's
+    rows of its own partial gradient).  No mean follows, unlike the
+    spatial tail: the gradients each data rank computes for the
+    parameters, too, come from its own output rows only, and the
+    tensor-parallel and pipeline steps already sum those over the data
+    axis, so the total is exact."""
+    return x if _single(axis) else _GatherRowsSummed.apply(x, axis)
 
 
 def all_reduce_mean(x: torch.Tensor, axis) -> torch.Tensor:

@@ -61,7 +61,13 @@ stage gathers the head outputs and targets over it and computes the loss
 whole (``tp.gather_batch``), so the numbers are the single-device
 accumulation step's on the global batch; micro-batch ``m`` of data index
 ``d`` is the ``d``-th part of the global rows of ``m``
-(``tp.shard_batch_tp``).
+(``tp.shard_batch_tp``).  A recurrent node of the stage runs its time loop
+over the global rows of the micro-batch (``tp.SequenceShard``): it gathers
+them over the data group, and its sub-layers' BN does not average again.
+That gather is a collective of the data group, which the forward
+wavefront and the recompute both run (a recurrent node is not under
+``remat="blocks"``'s checkpoint); the ranks of a group run the same
+micro-batches in the same order, so they meet in it in the same order.
 """
 
 from __future__ import annotations
@@ -79,7 +85,7 @@ from ..train.loop import (StepHooks, TrainConfig, TrainState, _maxima, collect_s
 from ..train.lr_schedule import make_schedule_fn
 from .dp import _mean_over_ranks
 from .mesh import PPMesh, recv_tensors, send_tensors
-from .tp import LayerShard, _tp_layers, check_recurrent_bn, gather_batch
+from .tp import LayerShard, _tp_layers, gather_batch, shard_sequences
 
 
 def _node_cost(model, key: int) -> float:
@@ -239,7 +245,8 @@ class PipelineModel:
     (:meth:`PipelineTrainStep.init_opt`): then only drawing the whole
     model's parameters, from the one seed, takes more than the stage.  With
     ``dp > 1`` every layer of the stage normalizes over the stage's data
-    group in training.
+    group in training, and every recurrent node runs over the group's
+    rows of the micro-batch.
 
     ``split_params``/``split_state``/``split_opt_state`` cut a tree in the
     reference's layout (``bridge.params_to_jax``, ``train.loop.
@@ -263,11 +270,12 @@ class PipelineModel:
         keep = {module_key(n) for n in self._names}
         for key in [k for k in model.layers if k not in keep]:
             del model.layers[key]
-        check_recurrent_bn(model, self.dp, "pipeline parallelism", self.plan.keys)
         if self.dp > 1:
             shard = LayerShard(mesh, sharded=False)
-            for module, _ in _tp_layers(model, self.plan.keys):
-                module.shard = shard
+            for module, _, recurrent in _tp_layers(model, self.plan.keys):
+                # a recurrent sub-layer normalizes rows already gathered
+                module.shard = None if recurrent else shard
+            shard_sequences(model, mesh.data, self.plan.keys)
 
     @property
     def is_first(self) -> bool:

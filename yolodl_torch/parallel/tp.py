@@ -13,10 +13,10 @@ is written out by hand, one process per rank of a ``parallel/mesh.py``
   mean and var, and their moments and EMA) are cut on O when ``O % n_model
   == 0`` and ``O >= n_model``; anything else stays replicated.  It is
   applied per layer (every leaf of a layer shares O) to ConvBn2D, Conv2D,
-  DeconvBn2D, the sub-convs of DarkCsp2D and SppCsp2D, and Linear.  A
+  DeconvBn2D, the sub-convs of DarkCsp2D and SppCsp2D, Linear, and each
+  sub-layer of a recurrent node ([rnn], [gru], [lstm] and [crnn]).  A
   grouped conv is cut only when its groups divide over the model axis
-  (each rank then holds whole groups); the recurrent kinds stay
-  replicated.
+  (each rank then holds whole groups).
 - **A sharded layer** runs Megatron's f/g on rank (d, m): ``copy_to_model``
   of the full input (its backward sums the partial input gradients over
   the model axis), the conv or dense product with the local weight, BN on
@@ -24,6 +24,16 @@ is written out by hand, one process per rank of a ``parallel/mesh.py``
   ``gather_channels`` (all-gather; its backward keeps this rank's slice).
   Everything after it (route, shortcut, pooling, upsampling, the heads)
   runs replicated on full tensors (:class:`LayerShard`).
+- **A recurrent node** (:class:`SequenceShard`) runs its time loop over
+  the micro-batch's global rows, as the reference's GSPMD step does: over
+  several data ranks it gathers its input rows (``gather_rows_summed``,
+  whose backward is a reduce-scatter), splits them into time steps, runs
+  every step, and keeps this rank's block of the output rows.  Its
+  sub-layers run as above, each cut or replicated by the leaf rule; their
+  BN normalizes the global rows it is given and does not average over the
+  data axis again.  The pipeline's data groups use the same context
+  (``parallel/pipeline.py``).  Data parallelism and the spatial step keep
+  the time split per rank, as the reference's ``shard_map`` bodies do.
 - **The data axis.**  Every train-mode BN averages its statistics over the
   data axis (``ops/norm.py`` ``batch_norm_apply_sync``); the head outputs
   and the targets are gathered over it before the loss
@@ -67,11 +77,11 @@ from ..ops.norm import batch_norm_apply_sync
 from ..train.loop import (StepHooks, TrainConfig, TrainState, _tree_name, make_optimizer,
                           make_train_step)
 from .dp import _mean_over_ranks
-from .mesh import TPMesh, copy_to_model, gather_channels, gather_rows
+from .mesh import TPMesh, copy_to_model, gather_channels, gather_rows, gather_rows_summed
 from .zero import FlatShard
 
-# node kinds with a recurrent time loop: replicated, and their BN is per
-# rank (ops/recurrent.py calls batch_norm_apply itself)
+# node kinds with a recurrent time loop over the micro-batch's rows
+# (SequenceShard)
 _RECURRENT = (cfg.DarknetRnn, cfg.DarknetGru, cfg.DarknetLstm, cfg.DarknetCrnn)
 
 
@@ -88,13 +98,14 @@ def leaf_spec(shape: Sequence[int], n_model: int) -> Optional[int]:
 class LayerShard:
     """How one layer runs under tensor parallelism on this rank: cut on its
     output channels over ``mesh``'s model axis (``sharded``) or replicated;
-    either way its train-mode BN averages over the data axis.  The layer's
-    apply function (``ops/conv.py`` ``conv_bn_apply``) calls :meth:`enter`
-    on its input, :meth:`batch_norm` for BN and :meth:`leave` on its
-    output."""
+    either way its train-mode BN averages over the data axis, unless
+    ``sync_bn`` is False (a sub-layer of a recurrent node, whose rows are
+    already the micro-batch's global ones).  The layer's apply function
+    (``ops/conv.py`` ``conv_bn_apply``) calls :meth:`enter` on its input,
+    :meth:`batch_norm` for BN and :meth:`leave` on its output."""
 
-    def __init__(self, mesh: TPMesh, sharded: bool):
-        self.mesh, self.sharded = mesh, sharded
+    def __init__(self, mesh: TPMesh, sharded: bool, sync_bn: bool = True):
+        self.mesh, self.sharded, self.sync_bn = mesh, sharded, sync_bn
 
     def enter(self, x: torch.Tensor, groups: int):
         """(input, conv groups) of the local conv: the full input through
@@ -113,21 +124,58 @@ class LayerShard:
         return gather_channels(y, self.mesh.model) if self.sharded else y
 
     def batch_norm(self, params, state, x, train):
-        return batch_norm_apply_sync(params, state, x, train, self.mesh.data)
+        return batch_norm_apply_sync(params, state, x, train,
+                                     self.mesh.data if self.sync_bn else None)
+
+
+class SequenceShard:
+    """How a recurrent node runs on this rank (``ops/recurrent.py``): its
+    time loop over the micro-batch's global rows, gathered over ``data``
+    (a data axis; None or one rank: the rows given are all of them), and
+    each sub-layer by its :class:`LayerShard` in ``subs``."""
+
+    def __init__(self, data, subs: Dict[str, LayerShard]):
+        self.data, self.subs = data, subs
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """The micro-batch's global rows, in data-rank order: rank d holds
+        the d-th part of each micro-batch (:func:`shard_batch_tp`)."""
+        return gather_rows_summed(x, self.data)
+
+    def leave(self, y: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the output rows."""
+        if self.data is None or self.data.world_size == 1:
+            return y
+        part = y.shape[0] // self.data.world_size
+        return y.narrow(0, self.data.rank * part, part)
 
 
 def _tp_layers(model: YoloModel, keys: Optional[Sequence[int]] = None):
-    """(module, conv groups) of every layer the leaf rule may cut, in graph
-    order (of the nodes ``keys`` only, when given)."""
+    """(module, conv groups, whether it is a sub-layer of a recurrent node)
+    of every layer the leaf rule may cut, in graph order (of the nodes
+    ``keys`` only, when given)."""
     for key in model.graph.order if keys is None else keys:
         layer = model.graph.nodes[key].config
         if isinstance(layer, (cfg.ConvBn2D, cfg.Conv2D, cfg.DeconvBn2D)):
-            yield model._node(key), layer.g
+            yield model._node(key), layer.g, False
         elif isinstance(layer, (cfg.DarkCsp2D, cfg.SppCsp2D)):
             for sub in model._node(key).values():
-                yield sub, 1
+                yield sub, 1, False
         elif isinstance(layer, cfg.Linear):
-            yield model._node(key), 1
+            yield model._node(key), 1, False
+        elif isinstance(layer, _RECURRENT):
+            for sub in model._node(key).values():
+                yield sub, getattr(layer, "g", 1), True
+
+
+def shard_sequences(model: YoloModel, data, keys: Optional[Sequence[int]] = None) -> None:
+    """Give every recurrent node (of ``keys``, when given) its
+    :class:`SequenceShard` over the axis ``data``, from its sub-layers'
+    shards (set first)."""
+    for key in model.graph.order if keys is None else keys:
+        if isinstance(model.graph.nodes[key].config, _RECURRENT):
+            node = model._node(key)
+            node.shard = SequenceShard(data, {name: sub.shard for name, sub in node.items()})
 
 
 def _is_cut(module, groups: int, n_model: int) -> bool:
@@ -140,7 +188,7 @@ def tp_shardings(mesh, model: YoloModel) -> Dict[str, Optional[int]]:
     ``n_model`` is read): every ``state_dict`` key → the dimension its
     tensor is cut on (0), or None when it stays replicated."""
     cut = set()
-    for module, groups in _tp_layers(model):
+    for module, groups, _ in _tp_layers(model):
         if _is_cut(module, groups, mesh.n_model):
             cut.update(id(t) for t in (*module.parameters(), *module.buffers()))
     return {k: (0 if id(v) in cut else None)
@@ -152,33 +200,17 @@ def _cut(t: torch.Tensor, mesh: TPMesh) -> torch.Tensor:
     return t.narrow(0, mesh.model_index * part, part).clone()
 
 
-def check_recurrent_bn(model: YoloModel, n_data: int, what: str,
-                       keys: Optional[Sequence[int]] = None) -> None:
-    """Raise when ``n_data`` data ranks would train a recurrent layer (of
-    ``keys``, when given) that normalizes: its BN keeps per-rank
-    statistics."""
-    if n_data == 1:
-        return
-    for key in model.graph.order if keys is None else keys:
-        layer = model.graph.nodes[key].config
-        if isinstance(layer, _RECURRENT) and layer.bn:
-            raise ValueError(
-                f"{what} over {n_data} data ranks: the recurrent layer "
-                f"{model._pname[key]} normalizes per rank (its BN statistics are not "
-                "synchronized); use one data rank")
-
-
 @torch.no_grad()
 def shard_model(mesh: TPMesh, model: YoloModel) -> List[str]:
     """Cut ``model``'s parameters and BN statistics to this rank's output
-    channels per :func:`tp_shardings`, and give every layer its
-    :class:`LayerShard` → the ``state_dict`` keys that were cut.  Raises
-    when the data axis has several ranks and a recurrent layer normalizes
-    (its BN would keep per-rank statistics)."""
-    check_recurrent_bn(model, mesh.n_data, "tensor parallelism")
+    channels per :func:`tp_shardings`, give every layer its
+    :class:`LayerShard` and every recurrent node its :class:`SequenceShard`
+    (over the data axis) → the ``state_dict`` keys that were cut."""
     plan = tp_shardings(mesh, model)
-    for module, groups in _tp_layers(model):
-        module.shard = LayerShard(mesh, _is_cut(module, groups, mesh.n_model))
+    for module, groups, recurrent in _tp_layers(model):
+        module.shard = LayerShard(mesh, _is_cut(module, groups, mesh.n_model),
+                                  sync_bn=not recurrent)
+    shard_sequences(model, mesh.data)
     tensors = model.state_dict(keep_vars=True)
     for key, dim in plan.items():
         if dim is not None:
@@ -490,7 +522,7 @@ def gather_train_state(mesh: TPMesh, ts: TrainState, config: TrainConfig,
 
 
 def _cut_tensors(model: YoloModel):
-    for module, _ in _tp_layers(model):
+    for module, _, _ in _tp_layers(model):
         if module.shard is not None and module.shard.sharded:
             yield from module.parameters()
             yield from module.buffers()
