@@ -16,6 +16,7 @@ from typing import List
 import numpy as np
 import torch
 
+from ..utils.timing import spanned
 from .nms import NmsOutput
 
 
@@ -24,6 +25,7 @@ class YoloInferenceOutput(NmsOutput):
     """Same layout as NmsOutput, but at most one class per (batch, instance)."""
 
 
+@spanned("yolodl.inference.select")
 def yolo_inference(nms_out: NmsOutput, num_flats: int) -> YoloInferenceOutput:
     """Keep only the best-confidence class per surviving instance."""
     conf, instances, valid = nms_out.confidence, nms_out.instances, nms_out.valid
@@ -43,6 +45,7 @@ def yolo_inference(nms_out: NmsOutput, num_flats: int) -> YoloInferenceOutput:
                                valid=keep)
 
 
+@spanned("yolodl.inference.to_host")
 def to_host_detections(out: NmsOutput) -> List[List[dict]]:
     """Unpack fixed-shape output into per-image python lists (host side)."""
     tlbr = out.tlbr.detach().to("cpu", torch.float32).numpy()

@@ -24,6 +24,7 @@ import typing
 import torch
 
 from ..ops.detect import MergedDetection
+from ..utils.timing import spanned
 
 Tensor = torch.Tensor
 
@@ -72,6 +73,7 @@ class MatchingOutput:
                 prediction.class_logit[rows, idx])
 
 
+@spanned("yolodl.loss.match")
 def match_targets(
     prediction: MergedDetection,
     gt_cycxhw: Tensor,  # [B, M, 4] ratio units

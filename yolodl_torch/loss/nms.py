@@ -30,6 +30,7 @@ import torch
 from ..geometry.boxes import cycxhw_to_tlbr
 from ..kernels.iou import nms_conflict_bits, nms_keep_from_bits
 from ..ops.detect import MergedDetection
+from ..utils.timing import span, spanned
 
 Tensor = torch.Tensor
 
@@ -65,8 +66,10 @@ def _suppress(tlbr: Tensor, group: Tensor, valid: Tensor, iou_threshold: float,
     resolved in rank order; nothing is read back to the host.  On the CPU
     both take their plain versions (kernels/iou.py).
     """
-    bits = nms_conflict_bits(tlbr, group, iou_threshold, kind, beta, device=tlbr.device)
-    return nms_keep_from_bits(bits, valid, device=tlbr.device)
+    with span("yolodl.nms.conflict"):
+        bits = nms_conflict_bits(tlbr, group, iou_threshold, kind, beta, device=tlbr.device)
+    with span("yolodl.nms.keep"):
+        return nms_keep_from_bits(bits, valid, device=tlbr.device)
 
 
 def nms_options_from_darknet(darknet) -> tuple:
@@ -88,6 +91,7 @@ def _top_k(x: Tensor, k: int):
     return values[..., :k], indices[..., :k]
 
 
+@spanned("yolodl.nms")
 def non_max_suppression(
     prediction: MergedDetection,
     iou_threshold: float = DEFAULT_IOU_THRESHOLD,

@@ -26,6 +26,7 @@ import torch
 from ..activations import softplus
 from ..geometry import boxes as geom
 from ..ops.detect import MergedDetection
+from ..utils.timing import spanned
 from .matcher import MatcherConfig, MatchingOutput, match_targets
 
 Tensor = torch.Tensor
@@ -141,6 +142,7 @@ def _per_flat(prediction: MergedDetection, values, dev) -> Tensor:
     ])
 
 
+@spanned("yolodl.loss")
 def yolo_loss(
     prediction: MergedDetection,
     gt_cycxhw: Tensor,

@@ -90,6 +90,7 @@ from ..config import newslab as cfg
 from ..graph import Graph
 from ..graph.ir import MERGE_DETECT_2D
 from ..ops import blocks, conv, detect, fold_region, norm, recurrent, simple, spd_stem
+from ..utils.timing import spanned
 
 Tensor = torch.Tensor
 
@@ -666,6 +667,7 @@ class GraphModel(nn.Module):
             nodes = self._node_sets[cache_key] = frozenset(seen)
         return nodes
 
+    @spanned("yolodl.model.forward")
     def forward(self, x: Optional[Tensor], data_format: str = "NCHW", *, train: bool = False,
                 output_keys: Optional[Tuple[int, ...]] = None,
                 generator: Optional[torch.Generator] = None,

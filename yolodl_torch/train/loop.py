@@ -24,6 +24,7 @@ import torch
 
 from ..loss import LossConfig, yolo_loss
 from ..models.builder import YoloModel
+from ..utils.timing import span, spanned
 from .ema import ema_init, ema_update
 from .lr_schedule import LrScheduleConfig, make_schedule_fn
 
@@ -276,9 +277,11 @@ def make_batch_grads(
             raws = tuple(outs[k].to(torch.float32) for k in head_keys)
             if gather is not None:
                 raws, gt_boxes, gt_classes, gt_mask = gather(raws, gt_boxes, gt_classes, gt_mask)
-            loss, dk_metrics = darknet_detection_loss_with_metrics(
-                raws, truth_rows(gt_boxes, gt_classes, gt_mask), head_params)
-            loss.backward()
+            with span("yolodl.loss"):
+                loss, dk_metrics = darknet_detection_loss_with_metrics(
+                    raws, truth_rows(gt_boxes, gt_classes, gt_mask), head_params)
+            with span("yolodl.train.backward"):
+                loss.backward()
             # the total, the per-term components and darknet's printed
             # training stats (loss/darknet_loss.py _head_cost_delta_stats)
             return {"total_loss": loss.detach(), **dk_metrics}
@@ -290,7 +293,8 @@ def make_batch_grads(
             if gather is not None:
                 pred, gt_boxes, gt_classes, gt_mask = gather(pred, gt_boxes, gt_classes, gt_mask)
             out, aux = yolo_loss(pred, gt_boxes, gt_classes, gt_mask, config.loss)
-            out.total_loss.backward()
+            with span("yolodl.train.backward"):
+                out.total_loss.backward()
             return collect_step_metrics(config, out, aux, pred)
 
     def batch_grads(images, gt_boxes, gt_classes, gt_mask):
@@ -304,11 +308,12 @@ def make_batch_grads(
         ys = [micro_batch(*(x[i * mb:(i + 1) * mb]
                             for x in (images, gt_boxes, gt_classes, gt_mask)))
               for i in range(accum)]
-        with torch.no_grad():
-            for p in model.parameters():
-                if p.grad is not None:
-                    p.grad.div_(accum)
-        return combine_micro_batches(ys)
+        with span("yolodl.train.update"):
+            with torch.no_grad():
+                for p in model.parameters():
+                    if p.grad is not None:
+                        p.grad.div_(accum)
+            return combine_micro_batches(ys)
 
     return batch_grads
 
@@ -406,6 +411,11 @@ def make_train_step(
     this rank's slice of the parameters in ``update``; tensor parallelism
     (``tp.py``) gathers the heads before the loss and reduces over its mesh;
     the spatial step (``spatial_model.py``) runs its own ``forward``.
+
+    Under a profiler the step is the span ``yolodl.train.step``; inside it,
+    each micro-batch's ``yolodl.model.forward``, ``yolodl.loss`` and
+    ``yolodl.train.backward``, then ``yolodl.train.update`` from the end of
+    the last micro-batch (``utils/timing.py`` ``span``).
     """
     hooks = StepHooks() if hooks is None else hooks
     batch_grads = make_batch_grads(model, config, data_format, accum, hooks.gather,
@@ -413,22 +423,24 @@ def make_train_step(
     schedule = make_schedule_fn(config.lr)
     params = list(model.parameters())
 
+    @spanned("yolodl.train.step")
     def step(ts: TrainState, images, gt_boxes, gt_classes, gt_mask):
         torch._foreach_zero_([p.grad for p in params if p.grad is not None])
         metrics = batch_grads(images, gt_boxes, gt_classes, gt_mask)
-        metrics = hooks.reduce(metrics)
-        if config.log_weights_and_grads:  # the gradients before clipping
-            grad_maxima = hooks.maxima(_maxima("grads_max", (
-                (key, p.grad) for key, p in model.named_parameters())))
-        hooks.update(optimizer, params, config, schedule(ts.step))
-        model.clamp_running_vars()
-        ts.step += 1
-        if ts.ema_params is not None:
-            ema_update(ts.ema_params, dict(model.named_parameters()), ts.step,
-                       config.ema_decay)
-        if config.log_weights_and_grads:
-            metrics.update(hooks.maxima(param_maxima(model)))
-            metrics.update(grad_maxima)
+        with span("yolodl.train.update"):
+            metrics = hooks.reduce(metrics)
+            if config.log_weights_and_grads:  # the gradients before clipping
+                grad_maxima = hooks.maxima(_maxima("grads_max", (
+                    (key, p.grad) for key, p in model.named_parameters())))
+            hooks.update(optimizer, params, config, schedule(ts.step))
+            model.clamp_running_vars()
+            ts.step += 1
+            if ts.ema_params is not None:
+                ema_update(ts.ema_params, dict(model.named_parameters()), ts.step,
+                           config.ema_decay)
+            if config.log_weights_and_grads:
+                metrics.update(hooks.maxima(param_maxima(model)))
+                metrics.update(grad_maxima)
         return ts, metrics
 
     return step

@@ -5,17 +5,30 @@ with parallel-merge taking the max, tree report, env-var whitelist
 ``YOLODL_PROFILING_WHITELIST``) and ``train/src/utils/rate_counter.rs``
 (records/s, batches/s).
 
-Counterpart of ``yolodl_tpu/utils/timing.py``.  Device-side timing belongs
-to ``torch.profiler``; this tracks the host pipeline, as the reference does.
-The environment switches are read when the module is imported, as there.
+Counterpart of ``yolodl_tpu/utils/timing.py``.  :func:`span` is how the
+program marks its layers for ``torch.profiler``, which times the device:
+a ``record_function`` range while a profiler runs, nothing otherwise.
+``Timing`` tracks the host pipeline, as the reference does, and mirrors each
+of its stages into a span (``yolodl.data.<stage>``), so that a profiler's
+trace shows them on the device's clock.  The environment switches are read
+when the module is imported, as there.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
 from typing import Dict, List, Optional
+
+import torch
+from torch.autograd.profiler import record_function
+
+# the C++ flag: torch.autograd.profiler._is_profiler_enabled is not set by a
+# profiler started through torch._C._autograd._enable_profiler
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_NO_SPAN = contextlib.nullcontext()
 
 _ENABLED = os.environ.get("YOLODL_PROFILING", "0") not in ("0", "", "false")
 _WHITELIST = {
@@ -23,6 +36,24 @@ _WHITELIST = {
     for name in os.environ.get("YOLODL_PROFILING_WHITELIST", "").split(",")
     if name.strip()
 }
+
+
+def span(name: str):
+    """A ``record_function`` range called ``name`` while a profiler runs,
+    else a shared no-op context: no span costs more than the check when
+    nothing records it, and none enters a trace made for export."""
+    return record_function(name) if _profiler_enabled() else _NO_SPAN
+
+
+def spanned(name: str):
+    """Decorator: every call of the function runs inside ``span(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
 
 
 def profiling_enabled(name: Optional[str] = None) -> bool:
@@ -52,14 +83,15 @@ class Timing:
 
     @contextlib.contextmanager
     def timed(self, name: str):
-        if not self._enabled:
-            yield
-            return
-        start = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.events[name] = self.events.get(name, 0.0) + time.perf_counter() - start
+        with span(f"yolodl.data.{name}"):
+            if not self._enabled:
+                yield
+                return
+            start = time.perf_counter()
+            try:
+                yield
+            finally:
+                self.events[name] = self.events.get(name, 0.0) + time.perf_counter() - start
 
     def merge(self, other: "Timing") -> None:
         """Merge a parallel timeline, taking the max per event
